@@ -1,0 +1,222 @@
+"""Library API, mirroring the reference C API (dd_alpha_amg.h:42-84) and the
+JAX package's api.Solver: set_conf / setup / solve.
+
+    params = config.parse_ini("sample.ini")
+    solver = api.Solver(params, device="cuda")
+    plaq = solver.set_conf(U)            # U [4,T,Z,Y,X,3,3] numpy, raw links
+    solver.setup()                       # hierarchy + bootstrap
+    x, info = solver.solve(rhs, tol=1e-10)
+
+Ported: method 2 (FGMRES + red-black SAP) with interpolation 2 (bootstrap
+F-cycle setup) and two or more levels, mixed precision 0 (complex128 inner
+solve) or 1 and 2 (complex64 inner solve).  The outer loop refreshes the
+true residual in complex128 once per restart and runs each restart's inner
+solve as flexible GCR preconditioned by the multigrid cycle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import io as dio
+from .config import SolverParams, make_rhs
+from .gauge import average_plaquette
+from .geometry import Geometry
+from .mg.hierarchy import LevelConfig, MGConfig, Multigrid
+from .operators import cuda_dslash, fast
+from .operators.stencil import WilsonStencilSoA
+from .operators.wilson import WilsonOperator
+from .utils import pin_full_precision
+
+
+@dataclasses.dataclass
+class SetupStatus:
+    """Reference dd_alpha_amg_setup_status."""
+
+    setup_time: float = 0.0
+    gauge_updates_since_setup: int = 0
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    iterations: int
+    relres: float
+    converged: bool
+    solve_time: float
+    coarse_average: float = 0.0      # coarsest GCR iterations per outer iteration
+    resvec: list = dataclasses.field(default_factory=list)
+
+
+_SCHEMES = {1: "additive", 2: "red_black", 3: "sixteen_color"}
+
+
+class Solver:
+    """Wilson-clover solver on one device (`device`, e.g. "cuda" or "cpu";
+    nothing moves to another device behind the caller's back)."""
+
+    def __init__(self, params: SolverParams, device="cuda"):
+        pin_full_precision()
+        self.p = params.validate()
+        self.device = torch.device(device)
+        self.op: Optional[WilsonOperator] = None
+        self.outer: Optional[WilsonStencilSoA] = None
+        self.mg: Optional[Multigrid] = None
+        self.status = SetupStatus()
+        self._inner_dtype = (torch.complex64 if params.mixed_precision
+                             else torch.complex128)
+
+    @property
+    def lattice(self):
+        return tuple(self.p.depth[0].global_lattice)
+
+    # --- configuration -------------------------------------------------
+
+    def read_conf(self, path: Optional[str] = None):
+        """Returns (computed plaquette, plaquette in the file header)."""
+        U, header_plaq = dio.read_gauge_field(path or self.p.configuration,
+                                              anti_periodic=self.p.anti_pbc)
+        return self.set_conf(U, links_have_bc=True), header_plaq
+
+    def set_conf(self, U, links_have_bc: bool = False) -> float:
+        """Store the gauge field and build the Dirac operator in complex128;
+        returns the average plaquette (reference dd_alpha_amg_set_conf)."""
+        bc = self.p.bc if self.p.bc is not None else (2 if self.p.anti_pbc else 1)
+        if bc == 0:
+            raise NotImplementedError("Dirichlet (open) time boundaries are not "
+                                      "ported yet (ROADMAP A, still to port 4)")
+        U = np.array(U, dtype=np.complex128)
+        if bc == 2 and not links_have_bc:
+            U[0, -1] *= -1.0
+        Ud = torch.as_tensor(U, device=self.device)
+        self.op = WilsonOperator.from_gauge(Ud, m0=self.p.m0, csw=self.p.csw)
+        geom = Geometry(lattice=self.lattice,
+                        block=tuple(self.p.depth[0].block_lattice))
+        # the outer loop's true residual: complex128 operator through K1
+        self.outer = WilsonStencilSoA.build(self.op, geom, dtype=torch.complex128)
+        self.status.gauge_updates_since_setup += 1
+        return average_plaquette(Ud)
+
+    # --- setup ---------------------------------------------------------
+
+    def _mg_config(self) -> MGConfig:
+        p = self.p
+        for key in ("coarse_block_bf16", "coarsest_direct", "smoother_direct"):
+            if getattr(p, key):
+                raise NotImplementedError(f"{key.replace('_', ' ')} is not "
+                                          "ported yet (ROADMAP A, still to port 2-3)")
+        return MGConfig(
+            levels=[LevelConfig(
+                lattice=tuple(d.global_lattice), block=tuple(d.block_lattice),
+                post_smooth_iter=d.post_smooth_iter, block_iter=d.block_iter,
+                num_test_vectors=d.test_vectors, setup_iter=d.setup_iter,
+                n_cy=d.preconditioner_cycles,
+            ) for d in p.depth[:p.num_levels]],
+            kcycle=p.kcycle, kcycle_tol=p.kcycle_tol,
+            kcycle_length=p.kcycle_length, kcycle_restarts=p.kcycle_restarts,
+            coarse_tol=p.coarse_tol, coarse_iter=p.coarse_iter,
+            coarse_restart=p.coarse_restart, odd_even=p.odd_even,
+            scheme=_SCHEMES[p.method], dtype=self._inner_dtype,
+            seed=int(time.time()) if p.randomize_test_vectors else p.seed)
+
+    def build_hierarchy(self) -> Multigrid:
+        """The multigrid hierarchy with its initial (smoothed random) test
+        vectors, before any bootstrap iteration."""
+        if self.op is None:
+            raise RuntimeError("call set_conf first")
+        p = self.p
+        if not (p.method == 2 and p.interpolation == 2 and p.num_levels > 1):
+            raise NotImplementedError(
+                f"method {p.method} with interpolation {p.interpolation} and "
+                f"{p.num_levels} levels is not ported yet; the port runs "
+                "method 2, interpolation 2, >= 2 levels (ROADMAP A, still to port 4)")
+        self.mg = Multigrid(self.op, self._mg_config())
+        return self.mg
+
+    def setup(self) -> SetupStatus:
+        """Build the preconditioner (reference dd_alpha_amg_setup): the
+        hierarchy, then the bootstrap setup."""
+        t0 = time.perf_counter()
+        self.build_hierarchy().bootstrap_setup()
+        self._sync()
+        self.status.setup_time = time.perf_counter() - t0
+        self.status.gauge_updates_since_setup = 0
+        return self.status
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- solves --------------------------------------------------------
+
+    def apply_operator(self, v: torch.Tensor) -> torch.Tensor:
+        """D v in complex128 for dof-major fields [*, 12, V] (K1)."""
+        s = self.outer
+        return cuda_dslash.d_plus_clover(s.links, s.cdiag, s.coff, v, self.lattice)
+
+    def solve(self, rhs=None, tol: Optional[float] = None):
+        """Solve D x = rhs; rhs and x are numpy [T, Z, Y, X, 4, 3]."""
+        if self.mg is None:
+            raise RuntimeError("call setup first")
+        p = self.p
+        tol = p.tol if tol is None else tol
+        if rhs is None:
+            rhs = make_rhs(p.right_hand_side, self.lattice, seed=p.seed)
+        self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0)
+        t0 = time.perf_counter()
+        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(rhs, np.complex128),
+                                               device=self.device))
+        x, iters, relres, resvec = self._solve_mp(b, tol)
+        self._sync()
+        dt = time.perf_counter() - t0
+        x_log = fast.spinor_from_soa(x, self.lattice).cpu().numpy()
+        info = SolveInfo(iterations=iters, relres=relres, converged=relres < tol,
+                         solve_time=dt,
+                         coarse_average=self.mg.stats["coarse_iterations"] / max(iters, 1),
+                         resvec=resvec)
+        return x_log, info
+
+    def _solve_mp(self, b, tol):
+        """Outer loop: once per restart the complex128 true residual, then
+        one inner flexible-GCR restart in the inner precision asked to reduce
+        it by what remains to be done, but by no more than inner_tol_clip.
+        The default clip is 1e-5 for a complex64 inner solve (the
+        reference's inner threshold MAX(tol, 1e-5), src/linsolve.c:44: an
+        f32 sweep cannot verify a deeper reduction and stalls when asked
+        to) and none for a complex128 inner solve, which then runs as one
+        Krylov space like the reference's double-precision FGMRES."""
+        p = self.p
+        if p.inner_tol_clip is not None:
+            clip = float(p.inner_tol_clip)
+        else:
+            clip = 1e-5 if self._inner_dtype == torch.complex64 else 0.0
+        norm_b = float(torch.linalg.vector_norm(b)) or 1.0
+        x = torch.zeros_like(b)
+        iters, resvec, relres = 0, [], 1.0
+        for restart in range(p.max_restarts + 1):
+            r = b if restart == 0 else b - self.apply_operator(x)
+            nr = float(torch.linalg.vector_norm(r))
+            relres = nr / norm_b
+            resvec.append(relres)
+            if relres < tol or restart == p.max_restarts:
+                break
+            z, it = self.mg.inner_restart(r.to(self._inner_dtype),
+                                          max(tol * norm_b / nr, clip),
+                                          m=p.restart_length)
+            x = x + z.to(torch.complex128)
+            iters += it
+        return x, iters, relres, resvec
+
+    def true_residual(self, x, rhs) -> float:
+        """||rhs - D x|| / ||rhs|| in complex128 (the reference's
+        FGMRES_RESTEST)."""
+        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(rhs, np.complex128),
+                                               device=self.device))
+        xs = fast.spinor_to_soa(torch.as_tensor(np.asarray(x, np.complex128),
+                                                device=self.device))
+        r = b - self.apply_operator(xs)
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))

@@ -1,0 +1,136 @@
+// Coarse-operator kernel K4 for Hopper (sm_90a).
+//
+// Replaces: ddalphaamg_tpu/operators/pallas_coarse.py::_kernel_t
+// (pallas_call at pallas_coarse.py:200, built by _build_call, called by
+// apply_packed).
+//
+// What it computes: the coarse stencil of d x d complex blocks (d = 2N),
+//   out[b, i, x] = sum_{k in [k0, k1)} sum_j B_k[j, i, x] v[b, j, n_k(x)]
+// with terms k = 0 self (A), k = 1 + mu forward hops n_k(x) = x + mu (Df_mu),
+// k = 5 + mu backward hops n_k(x) = x - mu (Db_mu).  With a mask block
+// (bt, bz, by, bx) > 0 the hops that cross a block face are dropped: a
+// forward hop from a site on the upper mu face, a backward hop from a site
+// on the lower mu face (the Schwarz block operator and intra-block hops,
+// and the Galerkin aggregate-internal piece).  parity >= 0 zeroes sites of
+// the other parity (the odd-site self-coupling inverse).
+//
+// Layout: fields [batch, d, V]; blocks [K, d (j), d (i), V], sites fastest.
+//
+// What bounds it on the H100: memory, in the blocks.  A full apply at
+// d = 56 reads 9 * 56^2 complex64 = 226 KB of blocks per site against
+// 9 * 56 * 8 B of field and 56 * 8 B of output, with 8 flop per 8-byte
+// block entry (1 flop/byte).  On the small coarse lattices of the main path
+// (8^4 = 4096 and 4^4 = 256 sites) the number of sites is too small to
+// hide the load latency with one thread per site, so the design spreads
+// each output over more threads: a thread block is TS sites x JS slices
+// of the j sum; a thread owns one site, a chunk of ICH output rows i and
+// every JS-th j, so a warp reads 32 consecutive sites of the same
+// (k, j, i) entry (coalesced) and only ICH complex accumulators live in
+// registers (not 56).  The JS partial sums meet in shared memory in a
+// fixed order, so results do not depend on scheduling.  The TPU kernel's
+// accumulation along a sequential grid axis over k becomes a loop over k
+// inside the thread, since thread blocks run in no order.  Neighbor
+// fields are gathered and masked here from coordinates, so no 9-field
+// stack is ever built.  For a batch of right-hand sides the batch index is
+// the fastest block index, so the blocks of one site tile are read by
+// concurrently running thread blocks and reach the other batch members
+// from L2.
+#include "common.cuh"
+
+constexpr int ICH = 8;  // output rows per thread
+constexpr int TS = 32;  // sites per thread block (one warp wide)
+constexpr int JS = 8;   // slices of the j sum per thread block
+
+template <typename R>
+__global__ void __launch_bounds__(TS * JS) coarse_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ v,
+                                                        const cplx<R>* __restrict__ blocks, Lattice L, int V,
+                                                        int d, int k0, int k1, int4 mblk, int parity, int batch) {
+  __shared__ cplx<R> part[JS][ICH][TS];
+  int tile = blockIdx.x / batch;
+  int b = blockIdx.x - tile * batch;
+  int tx = threadIdx.x, js = threadIdx.y;
+  int site = tile * TS + tx;
+  int i0 = blockIdx.y * ICH;
+  bool live = site < V;
+  int c[4] = {0, 0, 0, 0};
+  if (live) site_coords(L, site, c);
+  bool zero = !live || (parity >= 0 && ((c[0] + c[1] + c[2] + c[3]) & 1) != parity);
+  const int mb[4] = {mblk.x, mblk.y, mblk.z, mblk.w};
+  const cplx<R>* vb = v + (long long)b * d * V;
+  cplx<R> acc[ICH];
+#pragma unroll
+  for (int ii = 0; ii < ICH; ++ii) acc[ii] = cx<R>(0, 0);
+
+  if (!zero) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {  // unrolled: mu is a constant in each copy
+      if (k < k0 || k >= k1) continue;
+      int nb = site;
+      if (k > 0) {
+        const int mu = (k - 1) & 3;
+        const bool fwd = k < 5;
+        if (mb[mu] > 0) {
+          int r = c[mu] % mb[mu];
+          if (fwd ? (r == mb[mu] - 1) : (r == 0)) continue;
+        }
+        nb = site_step(L, site, c, mu, fwd ? +1 : -1);
+      }
+      const cplx<R>* Bk = blocks + (long long)k * d * d * V;
+      for (int j = js; j < d; j += JS) {
+        cplx<R> vj = vb[(long long)j * V + nb];
+        const cplx<R>* Bj = Bk + ((long long)j * d + i0) * V + site;
+#pragma unroll
+        for (int ii = 0; ii < ICH; ++ii)
+          if (i0 + ii < d) cfma(acc[ii], Bj[(long long)ii * V], vj);
+      }
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < ICH; ++ii) part[js][ii][tx] = acc[ii];
+  __syncthreads();
+  // JS * TS threads finish ICH * TS outputs: thread (tx, js) sums rows
+  // ii = js, js + JS, ... of site tx over the JS slices in order
+  if (!live) return;
+  cplx<R>* o = out + (long long)b * d * V;
+  for (int ii = js; ii < ICH; ii += JS) {
+    if (i0 + ii >= d) continue;
+    cplx<R> s = part[0][ii][tx];
+#pragma unroll
+    for (int q = 1; q < JS; ++q) s = cadd(s, part[q][ii][tx]);
+    o[(long long)(i0 + ii) * V + site] = s;
+  }
+}
+
+namespace {
+
+template <typename R>
+int launch_coarse(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y, int x,
+                  int bt, int bz, int by, int bx, int parity, int batch, void* stream) {
+  Lattice L = make_lattice(t, z, y, x);
+  int V = t * z * y * x;
+  int tiles = (V + TS - 1) / TS;
+  dim3 grid((unsigned)(tiles * batch), (unsigned)((d + ICH - 1) / ICH));
+  dim3 block(TS, JS);
+  coarse_kernel<R><<<grid, block, 0, (cudaStream_t)stream>>>((cplx<R>*)out, (const cplx<R>*)v,
+                                                             (const cplx<R>*)blocks, L, V, d, k0, k1,
+                                                             make_int4(bt, bz, by, bx), parity, batch);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4; blocks holds terms [0, K) of which [k0, k1) are applied; mask block
+// extents 0 = unmasked; parity -1 = all sites.  Returns cudaGetLastError().
+int ddaamg_coarse_f32(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y,
+                      int x, int bt, int bz, int by, int bx, int parity, int batch, void* stream) {
+  return launch_coarse<float>(out, v, blocks, d, k0, k1, t, z, y, x, bt, bz, by, bx, parity, batch, stream);
+}
+
+int ddaamg_coarse_f64(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y,
+                      int x, int bt, int bz, int by, int bx, int parity, int batch, void* stream) {
+  return launch_coarse<double>(out, v, blocks, d, k0, k1, t, z, y, x, bt, bz, by, bx, parity, batch, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,138 @@
+"""Build, load and count the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with nvcc for sm_90a into one shared library with a
+plain C interface and loaded with ctypes.  The build happens at first use,
+never at import, into build/torch_kernels/ under the repository root (listed
+in .gitignore), keyed by a hash of the sources.  A failed build raises.
+
+Every kernel has a `Kernel` record whose `launches` counter its wrapper
+increments exactly where it launches the CUDA kernel; a run can reset the
+counters and read them afterwards to show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, and how
+    many times its wrapper launched it."""
+
+    name: str
+    route: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+KERNELS = {
+    "K1": Kernel("K1 dslash full", "cuda", "ddalphaamg_tpu_torch/csrc/dslash.cu",
+                 "ddalphaamg_tpu/operators/pallas_dslash.py:385"),
+    "K2": Kernel("K2 dslash hop", "cuda", "ddalphaamg_tpu_torch/csrc/dslash.cu",
+                 "ddalphaamg_tpu/operators/pallas_dslash.py:385"),
+    "K3": Kernel("K3 clover", "cuda", "ddalphaamg_tpu_torch/csrc/dslash.cu",
+                 "ddalphaamg_tpu/operators/pallas_dslash.py:353"),
+    "K4": Kernel("K4 coarse", "cuda", "ddalphaamg_tpu_torch/csrc/coarse.cu",
+                 "ddalphaamg_tpu/operators/pallas_coarse.py:200"),
+}
+
+
+def reset_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {key: k.launches for key, k in KERNELS.items()}
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "ddaamg_dslash_f32": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 13 + [_P],
+    "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 13 + [_P],
+}
+
+_lib = None
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def build() -> Path:
+    """Compile the library if no build of the current sources exists;
+    returns its path."""
+    global build_seconds
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libddaamg_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,337 @@
+"""Multigrid hierarchy: level construction, K-cycles, the coarsest solve and
+the adaptive (bootstrap) setup.
+
+Reference call paths rebuilt here (as in the JAX package's mg/hierarchy.py):
+  * initial hierarchy: coarse_grid_correction_PRECISION_setup
+    (src/setup_generic.c:29-108) -- random test vectors smoothed with 1, 2, 3
+    SAP cycles (src/setup_generic.c:215-236), aggregate QR -> P, Galerkin
+    coarse operator, recurse;
+  * cycles: vcycle_PRECISION (src/vcycle_generic.c:91-141) with K-cycle
+    FGMRES wrappers on intermediate levels and the odd-even Schur GCR
+    coarsest solver (coarse_solve_odd_even_PRECISION,
+    src/coarse_oddeven_generic.c:1139);
+  * bootstrap: inv_iter_inv_fcycle_PRECISION (src/setup_generic.c:441-503)
+    with test_vector_PRECISION_update pulling coarse solutions out of the
+    cycle, re_setup_PRECISION rebuilding P and D_c, and the F-cycle
+    recursion into coarser levels.
+
+Fields of every level are [dof, V] (operators/stencil.py); the per-TV setup
+cycles run one test vector at a time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..geometry import Geometry
+from ..operators.stencil import ODD, CoarseStencilSoA, WilsonStencilSoA
+from ..operators.wilson import WilsonOperator
+from ..smoothers.sap import SchwarzPreconditioner, sap_smooth, sap_smooth_from
+from ..solvers.device_gmres import device_gcr
+from .galerkin import build_coarse_operator
+from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
+
+
+@dataclasses.dataclass
+class LevelConfig:
+    """Per-level parameters (reference ini `d<i> ...` keys)."""
+
+    lattice: tuple
+    block: tuple = (2, 2, 2, 2)
+    post_smooth_iter: int = 2
+    block_iter: int = 4
+    num_test_vectors: int = 20
+    setup_iter: int = 4
+    n_cy: int = 1  # preconditioner cycles
+
+
+@dataclasses.dataclass
+class MGConfig:
+    """Solver-wide parameters (reference ini global keys)."""
+
+    levels: list
+    kcycle: bool = True
+    kcycle_tol: float = 1e-1
+    kcycle_length: int = 5
+    kcycle_restarts: int = 2
+    coarse_tol: float = 5e-2
+    coarse_iter: int = 100
+    coarse_restart: int = 5
+    odd_even: bool = True
+    scheme: str = "red_black"
+    dtype: torch.dtype = torch.complex64
+    seed: int = 42
+
+    @property
+    def num_levels(self):
+        return len(self.levels)
+
+
+@dataclasses.dataclass
+class MGLevel:
+    depth: int
+    geom: Geometry
+    cfg: LevelConfig
+    stencil: object                      # WilsonStencilSoA | CoarseStencilSoA
+    smoother: Optional[SchwarzPreconditioner] = None
+    agg: Optional[Aggregation] = None    # to the next level
+    P: Optional[torch.Tensor] = None
+    test_vectors: Optional[torch.Tensor] = None  # [N, dof, V]
+    next: Optional["MGLevel"] = None
+
+    @property
+    def is_coarsest(self):
+        return self.next is None
+
+
+def _normalize(v):
+    """Each field of a stack (leading axis) scaled to unit norm."""
+    n = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=1)
+    return v / n.reshape(-1, *([1] * (v.dim() - 1)))
+
+
+class Multigrid:
+    """The AMG preconditioner: hierarchy + cycles + adaptive setup.  Initial
+    test vectors are drawn from a torch.Generator seeded with cfg.seed;
+    set_test_vectors injects others (tests give the JAX package and the
+    port the same vectors this way)."""
+
+    def __init__(self, op: WilsonOperator, cfg: MGConfig):
+        self.cfg = cfg
+        self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0}
+        self.fine = self._build(op)
+
+    # ------------------------------------------------------------------
+    # hierarchy construction
+    # ------------------------------------------------------------------
+
+    def _levels(self) -> list:
+        out, lvl = [], self.fine
+        while lvl is not None:
+            out.append(lvl)
+            lvl = lvl.next
+        return out
+
+    def _build(self, op: WilsonOperator) -> MGLevel:
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(int(cfg.seed))
+        levels: list[MGLevel] = []
+        for d, lc in enumerate(cfg.levels):
+            geom = Geometry(lattice=tuple(lc.lattice), block=tuple(lc.block))
+            if d == 0:
+                stencil = WilsonStencilSoA.build(op, geom, dtype=cfg.dtype)
+            else:
+                prev = levels[-1]
+                prev.agg = Aggregation(
+                    fine_lattice=prev.geom.lattice,
+                    coarsening=tuple(prev.geom.lattice[mu] // lc.lattice[mu]
+                                     for mu in range(4)),
+                    num_vectors=prev.cfg.num_test_vectors,
+                    fine_dpc=prev.stencil.field_shape[0] // 2)
+                prev.test_vectors = self._initial_test_vectors(prev, gen)
+                prev.P, stencil = self._resetup(prev, geom)
+            level = MGLevel(depth=d, geom=geom, cfg=lc, stencil=stencil)
+            if d < cfg.num_levels - 1:
+                # reference: block odd-even solver at depth 0 only
+                level.smoother = SchwarzPreconditioner(
+                    stencil, block_iter=lc.block_iter, cycles=lc.post_smooth_iter,
+                    odd_even=(d == 0 and cfg.odd_even), scheme=cfg.scheme)
+            if levels:
+                levels[-1].next = level
+            levels.append(level)
+        return levels[0]
+
+    def _initial_test_vectors(self, level: MGLevel, gen) -> torch.Tensor:
+        """Random vectors progressively smoothed with 1, 2, 3 SAP cycles
+        (reference interpolation_PRECISION_define,
+        src/setup_generic.c:215-246), all test vectors as one batch."""
+        s = level.stencil
+        shape = (level.cfg.num_test_vectors, *s.field_shape)
+        rdtype = torch.empty((), dtype=self.cfg.dtype).real.dtype
+        tv = torch.complex(torch.randn(shape, generator=gen, dtype=rdtype),
+                           torch.randn(shape, generator=gen, dtype=rdtype))
+        v = tv.to(device=s.device, dtype=s.dtype)
+        sm = level.smoother
+        for ncy in (1, 2, 3):
+            v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
+        return _normalize(v)
+
+    def _resetup(self, level: MGLevel, next_geom: Geometry):
+        """One coarsening rebuild: P from the level's test vectors, then the
+        Galerkin coarse stencil."""
+        P = build_interpolation(level.agg, level.test_vectors)
+        cop = build_coarse_operator(level.stencil, level.agg, P)
+        return P, CoarseStencilSoA.build(cop, next_geom, dtype=self.cfg.dtype)
+
+    def re_setup(self, level: MGLevel):
+        """Rebuild P and the Galerkin operators from `level` downward
+        (re_setup_PRECISION)."""
+        lvl = level
+        while lvl is not None and not lvl.is_coarsest:
+            nxt = lvl.next
+            lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom)
+            if nxt.smoother is not None:
+                nxt.smoother.replace_stencil(nxt.stencil)
+            lvl = nxt
+
+    def set_test_vectors(self, tvs, depth: int = 0):
+        """Install test vectors [N, T, Z, Y, X, *dof] at `depth` and rebuild
+        the hierarchy from there (reference read_tv_from_file_PRECISION,
+        src/setup_generic.c:131-162)."""
+        level = self._levels()[depth]
+        s = level.stencil
+        n = level.cfg.num_test_vectors
+        tv = torch.as_tensor(np.asarray(tvs)).reshape(n, *level.geom.lattice, -1)
+        level.test_vectors = s.from_logical(tv).to(device=s.device, dtype=s.dtype)
+        self.re_setup(level)
+
+    # ------------------------------------------------------------------
+    # cycles
+    # ------------------------------------------------------------------
+
+    def _coarsest_solve(self, level: MGLevel, b):
+        """Odd-even Schur GCR on the coarsest level
+        (coarse_solve_odd_even_PRECISION); returns (x, counters) with
+        counters = [GCR iterations, operator applications]."""
+        cfg = self.cfg
+        s = level.stencil
+        if cfg.odd_even and all(e % 2 == 0 for e in level.geom.lattice):
+            def schur(v):
+                ve = s.even * v
+                return s.even * (s.self_op(ve) - s.hop(s.self_inv(s.hop(ve), ODD)))
+
+            b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
+            x_e, iters, _, _ = device_gcr(schur, b_e, m=cfg.coarse_iter,
+                                          tol=cfg.coarse_tol,
+                                          n_restarts=cfg.coarse_restart)
+            x_e = s.even * x_e
+            x = x_e + s.self_inv(b - s.hop(x_e), ODD)
+        else:
+            x, iters, _, _ = device_gcr(s.full_op, b, m=cfg.coarse_iter,
+                                        tol=cfg.coarse_tol,
+                                        n_restarts=cfg.coarse_restart)
+        return x, np.array([iters, iters + cfg.coarse_restart], dtype=np.float64)
+
+    def _cycle(self, depth: int, eta, kcycle_tol: float, collect=None):
+        """One preconditioning cycle at `depth` (vcycle_PRECISION); returns
+        (x, counters).  `collect` receives the next level's solution of the
+        top-level coarse correction (the bootstrap's test-vector update)."""
+        cfg = self.cfg
+        levels = self._levels()
+        level, nxt = levels[depth], levels[depth + 1]
+        s = level.stencil
+        counters = np.zeros(2)
+        x = None
+        for _ in range(level.cfg.n_cy):
+            r = eta if x is None else eta - s.full_op(x)
+            b_c = restrict(level.agg, level.P, r)
+            if nxt.is_coarsest:
+                x_c, it = self._coarsest_solve(nxt, b_c)
+            elif cfg.kcycle:
+                def kprec(v, _d=depth + 1):
+                    return self._cycle(_d, v, kcycle_tol)
+
+                x_c, _, _, it = device_gcr(
+                    nxt.stencil.full_op, b_c, m=cfg.kcycle_length,
+                    tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec)
+                it = np.zeros(2) if it is None else it
+            else:
+                x_c, it = self._cycle(depth + 1, b_c, kcycle_tol,
+                                      collect=collect)
+            counters = counters + it
+            if collect is not None:
+                collect[depth + 1] = x_c
+            corr = interpolate(level.agg, level.P, x_c)
+            x = corr if x is None else x + corr
+            x = sap_smooth_from(s, level.smoother.colors, eta, x,
+                                cycles=level.cfg.post_smooth_iter,
+                                block_iter=level.cfg.block_iter,
+                                odd_even=(depth == 0 and cfg.odd_even))
+        return x, counters
+
+    def _kcycle_tol(self, depth: int, tol: float) -> float:
+        """No K-cycle runs below the last two levels (its tolerance is then
+        unused; kept 0 as in the JAX package)."""
+        return 0.0 if self.cfg.num_levels - depth <= 2 else float(tol)
+
+    def __call__(self, eta):
+        """Depth-0 preconditioner application M(eta)."""
+        s = self.fine.stencil
+        x, counters = self._cycle(0, eta.to(s.dtype),
+                                  self._kcycle_tol(0, self.cfg.kcycle_tol))
+        self._count(counters)
+        return x
+
+    def _count(self, counters):
+        self.stats["coarse_iterations"] += float(counters[0])
+        self.stats["coarse_matvecs"] += float(counters[1])
+
+    def inner_restart(self, r, rel_tol: float, m: int):
+        """One inner restart of the mixed-precision outer loop: m iterations
+        of flexible GCR over the fine operator, preconditioned by the
+        multigrid cycle, stopped once the residual falls below rel_tol.
+        Returns (z, iterations)."""
+        s = self.fine.stencil
+        ktol = float(self.cfg.kcycle_tol)
+
+        def prec(w):
+            return self._cycle(0, w, ktol)
+
+        z, iters, _, counters = device_gcr(s.full_op, r.to(s.dtype), m=m,
+                                           tol=rel_tol, n_restarts=1, prec=prec)
+        if counters is not None:
+            self._count(counters)
+        return z, iters
+
+    # ------------------------------------------------------------------
+    # adaptive (bootstrap) setup
+    # ------------------------------------------------------------------
+
+    def bootstrap_setup(self, setup_iter: Optional[int] = None):
+        """inv_iter_inv_fcycle_PRECISION: refine test vectors with the
+        current hierarchy, rebuilding P / D_c each iteration."""
+        it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
+        if self.cfg.num_levels < 2 or it <= 0:
+            return
+        self._inv_iter_fcycle(self.fine, it)
+
+    def _setup_cycles(self, level: MGLevel, tvs):
+        """The bootstrap cycle of every test vector, one at a time
+        (kcycle tolerance = coarse_tol during setup,
+        src/setup_generic.c:448).  Returns (xs, {depth: collected})."""
+        ktol = self._kcycle_tol(level.depth, self.cfg.coarse_tol)
+        xs, coll = [], {}
+        for tv in tvs:
+            collect = {}
+            x, _ = self._cycle(level.depth, tv, ktol, collect=collect)
+            xs.append(x)
+            for dep, xc in collect.items():
+                coll.setdefault(dep, []).append(xc)
+        return torch.stack(xs), {d: torch.stack(v) for d, v in coll.items()}
+
+    def _inv_iter_fcycle(self, level: MGLevel, setup_iter: int):
+        for j in range(setup_iter):
+            tvs = level.test_vectors
+            n = tvs.shape[0]
+            q = block_qr(tvs.reshape(n, -1).transpose(0, 1))
+            xs, collect = self._setup_cycles(level, q.transpose(0, 1).reshape(tvs.shape))
+            level.test_vectors = _normalize(xs)
+            # test_vector_PRECISION_update: coarse solutions of the cycles
+            lvl = level.next
+            while lvl is not None and not lvl.is_coarsest:
+                if lvl.depth in collect and lvl.test_vectors is not None:
+                    k = min(n, lvl.test_vectors.shape[0])
+                    lvl.test_vectors[:k] = _normalize(collect[lvl.depth][:k])
+                lvl = lvl.next
+            self.re_setup(level)
+            if level.depth == 0 and not level.next.is_coarsest:
+                sub = max(1, round((j + 1) * level.next.cfg.setup_iter / setup_iter))
+                self._inv_iter_fcycle(level.next, sub)
+        if level.depth > 0 and not level.next.is_coarsest:
+            sub = max(1, round(level.next.cfg.setup_iter * setup_iter
+                               / max(1, level.cfg.setup_iter)))
+            self._inv_iter_fcycle(level.next, sub)

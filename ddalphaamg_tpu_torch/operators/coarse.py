@@ -1,0 +1,86 @@
+"""Coarse-grid operator: a 4D nearest-neighbor stencil of dense d x d blocks
+(d = 2 * num_test_vectors), and the plain PyTorch version of kernel K4.
+
+Reference: src/coarse_operator_generic.c (apply_coarse_operator_PRECISION,
+:383-415).  Both hop directions are stored dense.  Dof ordering is
+(chirality, k), so gamma5_c = diag(-1_N, +1_N), consistent with the fine
+convention gamma5 = diag(-1, -1, +1, +1) over spins.
+
+Packed layout read by K4: blocks [K, d (j), d (i), V] with sites fastest;
+term k = 0 is the self-coupling A, k = 1 + mu the forward coupling Df_mu to
+phi(x + mu), k = 5 + mu the backward coupling Db_mu to phi(x - mu).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .fast import parity_mask
+
+
+class CoarseOperator(NamedTuple):
+    """Site-major blocks: A [V, d, d] (row i, column j); Df, Db [4, V, d, d]
+    couplings to phi(x + mu) / phi(x - mu), hopping signs folded in."""
+
+    A: torch.Tensor
+    Df: torch.Tensor
+    Db: torch.Tensor
+
+    @property
+    def dof(self):
+        return self.A.shape[-1]
+
+    def pack(self) -> torch.Tensor:
+        """-> [9, d (j), d (i), V]."""
+        Bs = torch.cat([self.A[None], self.Df, self.Db], dim=0)
+        return Bs.permute(0, 3, 2, 1).contiguous()
+
+
+def intra_block_masks(lattice, block) -> tuple[np.ndarray, np.ndarray]:
+    """(fwd, bwd) masks [4, T,Z,Y,X]: fwd = 0 where x is on the block's upper
+    mu face (the x -> x+mu coupling crosses), bwd = 0 on the lower face."""
+    fwd, bwd = [], []
+    for mu in range(4):
+        coord = np.arange(lattice[mu])
+        shape = [1, 1, 1, 1]
+        shape[mu] = lattice[mu]
+        up = ((coord % block[mu]) != (block[mu] - 1)).reshape(shape)
+        lo = ((coord % block[mu]) != 0).reshape(shape)
+        fwd.append(np.broadcast_to(up, lattice).astype(np.float64))
+        bwd.append(np.broadcast_to(lo, lattice).astype(np.float64))
+    return np.stack(fwd), np.stack(bwd)
+
+
+def neighbor(v: torch.Tensor, k: int, lattice) -> torch.Tensor:
+    """The field that term k reads: v(x), v(x + mu) or v(x - mu)."""
+    if k == 0:
+        return v
+    mu = (k - 1) % 4
+    shape = v.shape
+    w = v.reshape(*shape[:-1], *lattice)
+    w = torch.roll(w, -1 if k < 5 else 1, w.dim() - 4 + mu)
+    return w.reshape(shape)
+
+
+def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
+                       parity=None):
+    """Plain K4: out[i, x] = sum_{k in terms} sum_j B_k[j, i, x] v(n_k(x))[j]
+    with the same mask and parity semantics as the kernel."""
+    lattice = tuple(lattice)
+    masks = None
+    if mask_block is not None:
+        fwd, bwd = intra_block_masks(lattice, mask_block)
+        masks = torch.as_tensor(np.concatenate([fwd, bwd]).reshape(8, -1),
+                                dtype=v.real.dtype, device=v.device)
+    out = torch.zeros_like(v)
+    for k in range(*terms):
+        w = neighbor(v, k, lattice)
+        if masks is not None and k > 0:
+            w = w * masks[k - 1]
+        out = out + torch.einsum("jix,...jx->...ix", blocks[k], w)
+    if parity is not None:
+        out = out * parity_mask(lattice, parity, v.real.dtype, v.device)
+    return out

@@ -1,0 +1,226 @@
+"""Stencils: one operator interface for the SAP smoother and the multigrid
+cycles on every level.
+
+A stencil exposes (whole-lattice, mask-based; blocks never materialize):
+
+    full_op(v)          the full operator D v
+    block_op(v)         D restricted to intra-Schwarz-block couplings
+    self_op(v)          the per-site self-coupling (clover / A)
+    self_inv(v, parity) the inverse self-coupling on the sites of one parity
+    hop(v), hop_intra(v)  hopping terms, all / intra-block only
+    even, odd           site-parity masks [V]
+
+Fields of every level share one layout, [*batch, dof, V] (dof-major, sites
+fastest: 12 spin-color dof on the fine level, d = 2N on coarse levels), so
+block reductions and the layout hooks are common to both stencils.  Every
+operator goes through a kernel wrapper (K1-K4), which runs the plain PyTorch
+version only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..geometry import Geometry
+from . import cuda_coarse, cuda_dslash, fast
+from .coarse import CoarseOperator
+from .wilson import WilsonOperator
+
+EVEN, ODD = 0, 1
+
+
+def _link_intra_mask(geom: Geometry) -> np.ndarray:
+    """[4, V]: 0 where U_mu(x) crosses a Schwarz block boundary."""
+    masks = []
+    for mu in range(4):
+        coord = np.arange(geom.lattice[mu])
+        keep = (coord % geom.block[mu]) != (geom.block[mu] - 1)
+        shape = [1, 1, 1, 1]
+        shape[mu] = geom.lattice[mu]
+        masks.append(np.broadcast_to(keep.reshape(shape), geom.lattice))
+    return np.stack(masks).reshape(4, -1).astype(np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_index(lattice, block, device: str) -> torch.Tensor:
+    """[V] index of the Schwarz block of each site (block grid lexicographic)."""
+    c = np.indices(lattice).reshape(4, -1)
+    grid = [lattice[mu] // block[mu] for mu in range(4)]
+    b = np.zeros(c.shape[1], dtype=np.int64)
+    for mu in range(4):
+        b = b * grid[mu] + c[mu] // block[mu]
+    return torch.as_tensor(b, device=device)
+
+
+class _SoALayout:
+    """Layout hooks and block reductions shared by both stencils."""
+
+    geom: Geometry
+
+    @property
+    def lattice(self):
+        return tuple(self.geom.lattice)
+
+    def from_logical(self, v):
+        """[*b, T, Z, Y, X, dof] -> [*b, dof, V]."""
+        nb = v.dim() - 5
+        return v.reshape(*v.shape[:nb], -1, v.shape[-1]).movedim(-1, -2).contiguous()
+
+    def dof_sum(self, a):
+        return a.sum(dim=-2)
+
+    def block_sum(self, a):
+        """[*, V] -> [*, n_blocks] sums over each Schwarz block."""
+        gt, gz, gy, gx = self.geom.block_grid
+        bt, bz, by, bx = self.geom.block
+        a = a.reshape(*a.shape[:-1], gt, bt, gz, bz, gy, by, gx, bx)
+        return a.sum(dim=(-7, -5, -3, -1)).reshape(*a.shape[:-8], -1)
+
+    def block_expand(self, a):
+        """[*, n_blocks] -> [*, 1, V] (broadcasts over the dof axis)."""
+        idx = _block_index(self.lattice, tuple(self.geom.block), str(a.device))
+        return a[..., idx].unsqueeze(-2)
+
+
+@dataclasses.dataclass
+class WilsonStencilSoA(_SoALayout):
+    """Fine-level Wilson-clover stencil: links, block-masked links and the
+    packed clover and clover inverse, all dof-major."""
+
+    links: torch.Tensor          # [4, 3, 3, V]
+    links_intra: torch.Tensor
+    cdiag: torch.Tensor          # [2, 6, V] real
+    coff: torch.Tensor           # [2, 15, V]
+    cdiag_inv: torch.Tensor
+    coff_inv: torch.Tensor
+    even: torch.Tensor           # [V] real
+    odd: torch.Tensor
+    geom: Geometry
+
+    @classmethod
+    def build(cls, op: WilsonOperator, geom: Geometry, dtype=None) -> "WilsonStencilSoA":
+        """From the logical operator; the clover inverse is formed from the
+        operator's own precision before any cast to dtype."""
+        dtype = dtype or op.links.dtype
+        clov = fast.clover_to_soa(op.clover)
+        clov_inv = fast.clover_to_soa(herm_inv(op.clover))
+        rdtype = torch.empty((), dtype=dtype).real.dtype
+        links = fast.links_to_soa(op.links).to(dtype)
+        intra = torch.as_tensor(_link_intra_mask(geom), dtype=rdtype,
+                                device=links.device)
+        cdiag, coff = cuda_dslash.pack_clover(clov)
+        cdiag_inv, coff_inv = cuda_dslash.pack_clover(clov_inv)
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device)
+        return cls(links=links,
+                   links_intra=(links * intra[:, None, None]).contiguous(),
+                   cdiag=cdiag.to(rdtype), coff=coff.to(dtype),
+                   cdiag_inv=cdiag_inv.to(rdtype), coff_inv=coff_inv.to(dtype),
+                   even=even, odd=1.0 - even, geom=geom)
+
+    @property
+    def dtype(self):
+        return self.links.dtype
+
+    @property
+    def device(self):
+        return self.links.device
+
+    @property
+    def field_shape(self):
+        return (12, self.geom.num_sites)
+
+    def full_op(self, v):
+        return cuda_dslash.d_plus_clover(self.links, self.cdiag, self.coff, v,
+                                         self.lattice)
+
+    def block_op(self, v):
+        return cuda_dslash.d_plus_clover(self.links_intra, self.cdiag,
+                                         self.coff, v, self.lattice)
+
+    def self_op(self, v):
+        return cuda_dslash.clover(self.cdiag, self.coff, v, self.lattice)
+
+    def self_inv(self, v, parity):
+        return cuda_dslash.clover(self.cdiag_inv, self.coff_inv, v,
+                                  self.lattice, parity)
+
+    def hop_intra(self, v):
+        return cuda_dslash.hopping(self.links_intra, v, self.lattice)
+
+
+@dataclasses.dataclass
+class CoarseStencilSoA(_SoALayout):
+    """Coarse-level stencil: the 9 packed block terms [A, Df_0..3, Db_0..3]
+    and the packed self-coupling inverse; the Schwarz restriction masks the
+    neighbor fields inside K4, so one block tensor serves every operator."""
+
+    Pk: torch.Tensor             # [9, d, d, V]
+    Pk_inv: torch.Tensor         # [1, d, d, V]
+    even: torch.Tensor           # [V] real
+    odd: torch.Tensor
+    geom: Geometry
+
+    @classmethod
+    def build(cls, cop: CoarseOperator, geom: Geometry, dtype=None) -> "CoarseStencilSoA":
+        dtype = dtype or cop.A.dtype
+        rdtype = torch.empty((), dtype=dtype).real.dtype
+        Ainv = torch.linalg.inv(cop.A)
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, cop.A.device)
+        return cls(Pk=cop.pack().to(dtype),
+                   Pk_inv=Ainv[None].permute(0, 3, 2, 1).contiguous().to(dtype),
+                   even=even, odd=1.0 - even, geom=geom)
+
+    @property
+    def dtype(self):
+        return self.Pk.dtype
+
+    @property
+    def device(self):
+        return self.Pk.device
+
+    @property
+    def dof(self) -> int:
+        return self.Pk.shape[1]
+
+    @property
+    def field_shape(self):
+        return (self.dof, self.geom.num_sites)
+
+    def _apply(self, Pk, v, terms, masked=False, parity=None):
+        return cuda_coarse.coarse_apply(
+            Pk, v, self.lattice, terms,
+            mask_block=tuple(self.geom.block) if masked else None,
+            parity=parity)
+
+    def full_op(self, v):
+        return self._apply(self.Pk, v, (0, 9))
+
+    def hop(self, v):
+        return self._apply(self.Pk, v, (1, 9))
+
+    def block_op(self, v):
+        return self._apply(self.Pk, v, (0, 9), masked=True)
+
+    def self_op(self, v):
+        return self._apply(self.Pk, v, (0, 1))
+
+    def self_inv(self, v, parity):
+        return self._apply(self.Pk_inv, v, (0, 1), parity=parity)
+
+    def hop_intra(self, v):
+        return self._apply(self.Pk, v, (1, 9), masked=True)
+
+
+def herm_inv(a: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of Hermitian positive-definite [..., d, d] blocks by
+    Cholesky (reference selfcoupling_cholesky_decomposition_PRECISION,
+    src/oddeven_generic.c:24-117), re-Hermitized first."""
+    ah = 0.5 * (a + a.transpose(-1, -2).conj())
+    L = torch.linalg.cholesky(ah)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
+    l_inv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return l_inv.transpose(-1, -2).conj() @ l_inv

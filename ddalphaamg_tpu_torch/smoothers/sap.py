@@ -1,0 +1,144 @@
+"""Red-black multiplicative Schwarz (SAP) smoother, generic over levels.
+
+Reference: src/schwarz_generic.c (red_black_schwarz_PRECISION, :1260-1430)
+with block solvers local_minres_PRECISION (src/linsolve_generic.c:985-1029)
+and block_solve_oddeven_PRECISION (src/oddeven_generic.c:1332-1362).
+
+A Schwarz block's operator is the level operator with all block-crossing
+couplings masked to zero, so solving every block of one color at once is one
+whole-lattice masked stencil apply; block inner products are per-block
+reductions.  The multiplicative residual update is the global
+r <- r - D delta with the full operator after each color.  Fields may carry
+a leading batch axis (the initial test-vector smoothing runs all test
+vectors at once).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry import Geometry
+from ..operators.stencil import ODD
+
+
+def color_masks(geom: Geometry, scheme: str = "red_black") -> list[np.ndarray]:
+    """Site-level color masks [T,Z,Y,X] from the block coloring.
+
+    schemes (reference method 1/2/3, src/schwarz_generic.c:1077/1260/1652):
+      additive      -- one color (all blocks solved from the same residual)
+      red_black     -- two colors by block parity (red = parity 0)
+      sixteen_color -- 2^4 classes by per-dimension block-coordinate parity
+    """
+    if scheme == "additive":
+        return [np.ones(geom.lattice, dtype=np.float64)]
+    grids = np.meshgrid(*[np.arange(n) for n in geom.block_grid], indexing="ij")
+    if scheme == "red_black":
+        site = sum(grids) % 2
+        ncolors, color_of = 2, site
+    elif scheme == "sixteen_color":
+        # visit order of the reference (src/schwarz_generic.c:337-339):
+        # step k solves the blocks whose block-coordinate parity pattern
+        # p = 8(t%2)+4(z%2)+2(y%2)+(x%2) equals sigma[k]; multiplicative
+        # Schwarz results depend on this order, so it is kept verbatim
+        sigma = [0, 1, 3, 2, 6, 4, 5, 7, 15, 14, 12, 13, 9, 11, 10, 8]
+        pattern = (((grids[0] % 2) << 3) + ((grids[1] % 2) << 2)
+                   + ((grids[2] % 2) << 1) + (grids[3] % 2))
+        color_of = np.zeros_like(pattern)
+        for k, p in enumerate(sigma):
+            color_of[pattern == p] = k
+        ncolors = 16
+    else:
+        raise ValueError(scheme)
+    masks = []
+    for c in range(ncolors):
+        m = (color_of == c).astype(np.float64)
+        for mu in range(4):
+            m = np.repeat(m, geom.block[mu], axis=mu)
+        masks.append(m)
+    return masks
+
+
+def _alpha(s, Dr, r):
+    """Per-block alpha = <Dr, r> / <Dr, Dr>, broadcast back to sites."""
+    num = s.block_sum(s.dof_sum(Dr.conj() * r))
+    den = s.block_sum(s.dof_sum((Dr.conj() * Dr).real))
+    alpha = num / torch.where(den == 0, torch.ones_like(den), den)
+    return s.block_expand(alpha)
+
+
+def _minres(s, r, block_op, block_iter: int):
+    """local_minres on every block at once (zero blocks stay zero)."""
+    delta = torch.zeros_like(r)
+    for _ in range(block_iter):
+        Dr = block_op(r)
+        a = _alpha(s, Dr, r)
+        delta = delta + a * r
+        r = r - a * Dr
+    return delta
+
+
+def _block_schur(s, v):
+    """Per-block Schur complement on even sites (block odd-even)."""
+    ve = s.even * v
+    out = s.even * s.self_op(ve)
+    t = s.self_inv(s.hop_intra(ve), ODD)
+    return out - s.even * s.hop_intra(t)
+
+
+def _block_solve(s, r, block_iter: int, odd_even: bool):
+    """Approximate block solve of blockD delta = r (r masked to one color):
+    local MinRes, or the block odd-even Schur MinRes."""
+    if not odd_even:
+        return _minres(s, r, s.block_op, block_iter)
+    d_o1 = s.self_inv(r, ODD)
+    r_e = s.even * (r - s.hop_intra(d_o1))
+    d_e = _minres(s, r_e, lambda v: _block_schur(s, v), block_iter)
+    d_o = s.self_inv(r - s.hop_intra(s.even * d_e), ODD)
+    return s.even * d_e + d_o
+
+
+def _sweep(s, x, r, colors, cycles: int, block_iter: int, odd_even: bool):
+    """cycles sweeps over the colors; the last step skips the residual update."""
+    seq = list(colors) * cycles
+    for mask in seq[:-1]:
+        delta = _block_solve(s, mask * r, block_iter, odd_even)
+        x = x + delta
+        r = r - s.full_op(delta)
+    return x + _block_solve(s, seq[-1] * r, block_iter, odd_even)
+
+
+def sap_smooth(s, colors, eta, cycles: int, block_iter: int, odd_even: bool):
+    """M(eta) from a zero initial guess (preconditioner application)."""
+    return _sweep(s, torch.zeros_like(eta), eta, colors, cycles, block_iter,
+                  odd_even)
+
+
+def sap_smooth_from(s, colors, eta, x, cycles: int, block_iter: int,
+                    odd_even: bool):
+    """Post-smoothing with initial guess x (reference smoother _RES path)."""
+    r = eta - s.full_op(x)
+    return _sweep(s, x, r, colors, cycles, block_iter, odd_even)
+
+
+class SchwarzPreconditioner:
+    """SAP smoother of one multigrid level: block_iter MinRes steps per block
+    solve, `cycles` sweeps, block odd-even Schur solves when odd_even."""
+
+    def __init__(self, stencil, block_iter: int = 4, cycles: int = 1,
+                 odd_even: bool = True, scheme: str = "red_black"):
+        self.s = stencil
+        self.block_iter = block_iter
+        self.cycles = cycles
+        self.odd_even = odd_even
+        rdtype = stencil.even.dtype
+        self.colors = tuple(
+            torch.as_tensor(m.reshape(-1), dtype=rdtype, device=stencil.device)
+            for m in color_masks(stencil.geom, scheme))
+
+    def __call__(self, eta, cycles: int | None = None):
+        return sap_smooth(self.s, self.colors, eta.to(self.s.dtype),
+                          cycles or self.cycles, self.block_iter, self.odd_even)
+
+    def replace_stencil(self, stencil):
+        self.s = stencil

@@ -1,0 +1,106 @@
+"""The hand-written CUDA kernels K1-K4 against their plain PyTorch versions
+on a card, and a small solve through them.  Every test here needs a CUDA
+device and skips without one.  The file imports neither JAX nor the JAX
+package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ddalphaamg_tpu_torch import api, config, kernels
+from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
+from ddalphaamg_tpu_torch.operators.stencil import ODD
+
+torch.set_num_threads(1)
+
+TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _unitary_links(lat, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(4, *lat, 3, 3)) + 1j * rng.normal(size=(4, *lat, 3, 3))
+    q, _ = np.linalg.qr(a)
+    return q
+
+
+def _rel(got, want):
+    torch.cuda.synchronize()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _cplx(shape, gen, dtype, device):
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_dslash_kernels_match_plain(cuda, dtype):
+    lat = (4, 4, 4, 8)
+    from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
+    op = WilsonOperator.from_gauge(torch.as_tensor(_unitary_links(lat, 1), device=cuda),
+                                   -0.5, 1.0)
+    links = fast.links_to_soa(op.links).to(dtype)
+    cdiag, coff = cuda_dslash.pack_clover(fast.clover_to_soa(op.clover))
+    cdiag, coff = cdiag.to(links.real.dtype), coff.to(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    phi = _cplx((3, 12, int(np.prod(lat))), gen, dtype, cuda)
+    cases = [
+        (cuda_dslash.d_plus_clover(links, cdiag, coff, phi, lat),
+         fast.d_plus_clover_soa(links, cdiag, coff, phi, lat)),
+        (cuda_dslash.hopping(links, phi[0], lat), fast.dslash_hopping_soa(links, phi[0], lat)),
+        (cuda_dslash.clover(cdiag, coff, phi, lat), fast.clover_apply_soa(cdiag, coff, phi)),
+        (cuda_dslash.clover(cdiag, coff, phi, lat, ODD),
+         fast.clover_apply_soa(cdiag, coff, phi, lat, ODD)),
+    ]
+    for got, want in cases:
+        assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_coarse_kernel_matches_plain(cuda, dtype):
+    lat, d = (4, 4, 2, 4), 24
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    Pk = _cplx((9, d, d, V), gen, dtype, cuda)
+    v = _cplx((5, d, V), gen, dtype, cuda)
+    for terms, mask, parity in [((0, 9), None, None), ((1, 9), None, None),
+                                ((0, 9), (2, 2, 2, 2), None),
+                                ((1, 9), (2, 2, 2, 2), None),
+                                ((0, 1), None, None), ((0, 1), None, ODD)]:
+        got = cuda_coarse.coarse_apply(Pk, v, lat, terms, mask, parity)
+        want = coarse.coarse_apply_plain(Pk, v, lat, terms, mask, parity)
+        assert _rel(got, want) < TOL[dtype], (terms, mask, parity)
+
+
+@pytest.mark.gpu
+def test_small_solve_runs_through_the_kernels(cuda):
+    p = config.parse_ini("""configuration: none
+number of levels: 3
+d0 global lattice: 8 8 8 8
+d0 test vectors: 8
+d0 setup iter: 2
+d1 test vectors: 8
+d1 setup iter: 1
+method: 2
+mixed precision: 1
+""")
+    U = _unitary_links((8, 8, 8, 8), 4)
+    kernels.reset_counts()
+    s = api.Solver(p, device=cuda)
+    s.set_conf(U)
+    s.setup()
+    rhs = config.make_rhs("ones", s.lattice)
+    x, info = s.solve(rhs)
+    assert info.converged and s.true_residual(x, rhs) < 1e-10
+    assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
