@@ -12,11 +12,19 @@ F-cycle setup) and two or more levels, mixed precision 0 (complex128 inner
 solve) or 1 and 2 (complex64 inner solve).  The outer loop refreshes the
 true residual in complex128 once per restart and runs each restart's inner
 solve as flexible GCR preconditioned by the multigrid cycle.
+
+With a mesh (parallel/mesh.SolverMesh, one process per rank) the solve is
+domain-decomposed over a t/z process grid: every rank computes the
+plaquette and the complex128 clover on the global field and keeps its slab,
+solve scatters the right-hand side, the outer loop runs on slabs with
+global norms, and the solution is gathered so that solve returns the same
+global array on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -28,9 +36,11 @@ from .config import SolverParams, make_rhs
 from .gauge import average_plaquette
 from .geometry import Geometry
 from .mg.hierarchy import LevelConfig, MGConfig, Multigrid
-from .operators import cuda_dslash, fast
+from .operators import fast
 from .operators.stencil import WilsonStencilSoA
 from .operators.wilson import WilsonOperator
+from .parallel import comm
+from .parallel.mesh import gather_field, local_lattice, replicate, shard_operator
 from .utils import pin_full_precision
 
 
@@ -57,13 +67,17 @@ _SCHEMES = {1: "additive", 2: "red_black", 3: "sixteen_color"}
 
 class Solver:
     """Wilson-clover solver on one device (`device`, e.g. "cuda" or "cpu";
-    nothing moves to another device behind the caller's back)."""
+    nothing moves to another device behind the caller's back), or on this
+    rank's device of a t/z process grid (`mesh`; every rank constructs its
+    Solver and calls the same methods in the same order)."""
 
-    def __init__(self, params: SolverParams, device="cuda"):
+    def __init__(self, params: SolverParams, device="cuda", mesh=None):
         pin_full_precision()
         self.p = params.validate()
         self.device = torch.device(device)
-        self.op: Optional[WilsonOperator] = None
+        self.mesh = mesh
+        self.op: Optional[WilsonOperator] = None     # global, logical layout
+        self._op_slab: Optional[WilsonOperator] = None
         self.outer: Optional[WilsonStencilSoA] = None
         self.mg: Optional[Multigrid] = None
         self.status = SetupStatus()
@@ -73,6 +87,12 @@ class Solver:
     @property
     def lattice(self):
         return tuple(self.p.depth[0].global_lattice)
+
+    @property
+    def local_lattice(self):
+        if self.mesh is None:
+            return self.lattice
+        return local_lattice(self.mesh, self.lattice)
 
     # --- configuration -------------------------------------------------
 
@@ -94,10 +114,14 @@ class Solver:
             U[0, -1] *= -1.0
         Ud = torch.as_tensor(U, device=self.device)
         self.op = WilsonOperator.from_gauge(Ud, m0=self.p.m0, csw=self.p.csw)
-        geom = Geometry(lattice=self.lattice,
+        self._op_slab = self.op
+        if self.mesh is not None:
+            self._op_slab = shard_operator(self.mesh, self.op)
+        geom = Geometry(lattice=self.local_lattice,
                         block=tuple(self.p.depth[0].block_lattice))
         # the outer loop's true residual: complex128 operator through K1
-        self.outer = WilsonStencilSoA.build(self.op, geom, dtype=torch.complex128)
+        self.outer = WilsonStencilSoA.build(self._op_slab, geom,
+                                            dtype=torch.complex128, mesh=self.mesh)
         self.status.gauge_updates_since_setup += 1
         return average_plaquette(Ud)
 
@@ -121,7 +145,15 @@ class Solver:
             coarse_tol=p.coarse_tol, coarse_iter=p.coarse_iter,
             coarse_restart=p.coarse_restart, odd_even=p.odd_even,
             scheme=_SCHEMES[p.method], dtype=self._inner_dtype,
-            seed=int(time.time()) if p.randomize_test_vectors else p.seed)
+            seed=self._seed(), mesh=self.mesh)
+
+    def _seed(self) -> int:
+        if not self.p.randomize_test_vectors:
+            return self.p.seed
+        seed = int(time.time())
+        if self.mesh is not None:       # one hierarchy: rank 0's seed
+            seed = int(replicate(self.mesh, torch.tensor([seed]))[0])
+        return seed
 
     def build_hierarchy(self) -> Multigrid:
         """The multigrid hierarchy with its initial (smoothed random) test
@@ -134,7 +166,7 @@ class Solver:
                 f"method {p.method} with interpolation {p.interpolation} and "
                 f"{p.num_levels} levels is not ported yet; the port runs "
                 "method 2, interpolation 2, >= 2 levels (ROADMAP A, still to port 4)")
-        self.mg = Multigrid(self.op, self._mg_config())
+        self.mg = Multigrid(self._op_slab, self._mg_config())
         return self.mg
 
     def setup(self) -> SetupStatus:
@@ -143,7 +175,7 @@ class Solver:
         t0 = time.perf_counter()
         self.build_hierarchy().bootstrap_setup()
         self._sync()
-        self.status.setup_time = time.perf_counter() - t0
+        self.status.setup_time = self._wall(time.perf_counter() - t0)
         self.status.gauge_updates_since_setup = 0
         return self.status
 
@@ -151,12 +183,32 @@ class Solver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _wall(self, seconds: float) -> float:
+        """A wall time every rank reports alike: the slowest rank's."""
+        return seconds if self.mesh is None else comm.all_reduce_max(self.mesh, seconds)
+
+    def _norm(self, v) -> float:
+        """The global 2-norm of a fine field (a slab under a mesh)."""
+        if self.mesh is None:
+            return float(torch.linalg.vector_norm(v))
+        f = v.reshape(-1)
+        return math.sqrt(float(self.outer.allsum(torch.vdot(f, f).real)))
+
+    def _scatter(self, a) -> torch.Tensor:
+        """A global numpy fine field [T, Z, Y, X, 4, 3] -> this rank's
+        dof-major slab [12, V_l] in complex128 (rank 0's copy under a mesh)."""
+        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(a, np.complex128),
+                                               device=self.device))
+        if self.mesh is None:
+            return b
+        return self.outer.slab(replicate(self.mesh, b))
+
     # --- solves --------------------------------------------------------
 
     def apply_operator(self, v: torch.Tensor) -> torch.Tensor:
-        """D v in complex128 for dof-major fields [*, 12, V] (K1)."""
-        s = self.outer
-        return cuda_dslash.d_plus_clover(s.links, s.cdiag, s.coff, v, self.lattice)
+        """D v in complex128 for dof-major fields [*, 12, V] (K1; slabs
+        [*, 12, V_l] under a mesh)."""
+        return self.outer.full_op(v)
 
     def solve(self, rhs=None, tol: Optional[float] = None):
         """Solve D x = rhs; rhs and x are numpy [T, Z, Y, X, 4, 3]."""
@@ -168,11 +220,12 @@ class Solver:
             rhs = make_rhs(p.right_hand_side, self.lattice, seed=p.seed)
         self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0)
         t0 = time.perf_counter()
-        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(rhs, np.complex128),
-                                               device=self.device))
+        b = self._scatter(rhs)
         x, iters, relres, resvec = self._solve_mp(b, tol)
+        if self.mesh is not None:
+            x = gather_field(self.mesh, x, self.local_lattice)
         self._sync()
-        dt = time.perf_counter() - t0
+        dt = self._wall(time.perf_counter() - t0)
         x_log = fast.spinor_from_soa(x, self.lattice).cpu().numpy()
         info = SolveInfo(iterations=iters, relres=relres, converged=relres < tol,
                          solve_time=dt,
@@ -194,12 +247,12 @@ class Solver:
             clip = float(p.inner_tol_clip)
         else:
             clip = 1e-5 if self._inner_dtype == torch.complex64 else 0.0
-        norm_b = float(torch.linalg.vector_norm(b)) or 1.0
+        norm_b = self._norm(b) or 1.0
         x = torch.zeros_like(b)
         iters, resvec, relres = 0, [], 1.0
         for restart in range(p.max_restarts + 1):
             r = b if restart == 0 else b - self.apply_operator(x)
-            nr = float(torch.linalg.vector_norm(r))
+            nr = self._norm(r)
             relres = nr / norm_b
             resvec.append(relres)
             if relres < tol or restart == p.max_restarts:
@@ -213,10 +266,7 @@ class Solver:
 
     def true_residual(self, x, rhs) -> float:
         """||rhs - D x|| / ||rhs|| in complex128 (the reference's
-        FGMRES_RESTEST)."""
-        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(rhs, np.complex128),
-                                               device=self.device))
-        xs = fast.spinor_to_soa(torch.as_tensor(np.asarray(x, np.complex128),
-                                                device=self.device))
-        r = b - self.apply_operator(xs)
-        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+        FGMRES_RESTEST); x and rhs are global arrays."""
+        b = self._scatter(rhs)
+        r = b - self.apply_operator(self._scatter(x))
+        return self._norm(r) / self._norm(b)

@@ -6,43 +6,94 @@ Reads a reference-format input file, builds the solver on the device, runs
 the setup and the solve, and prints a reference-shaped summary.  A
 configuration path in the ini that does not exist is looked up beside the
 ini file.
+
+An ini whose `d0 local lattice` is smaller than its `d0 global lattice`
+requests the process grid global / local (the reference's run script
+derives np the same way); only t and z may be split.  Start one process per
+rank with torchrun:
+
+    torchrun --nproc-per-node=N -m ddalphaamg_tpu_torch.cli <input.ini> \\
+        [--transport nccl|gloo]
+
+"nccl" (the default) pins rank r to cuda:LOCAL_RANK and needs a card per
+rank; "gloo" lets ranks share cards (its faces and sums cross the host).
+Only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
+
+
+def _process_grid(params):
+    d0 = params.depth[0]
+    if not d0.local_lattice:
+        return None
+    dims = tuple(g // l for g, l in zip(d0.global_lattice, d0.local_lattice))
+    return dims if math.prod(dims) > 1 else None
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="DD-alphaAMG solver (PyTorch + CUDA)")
     ap.add_argument("ini", help="input parameter file (reference format)")
-    ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--device", default="cuda", help="torch device type (default cuda)")
     ap.add_argument("--tol", type=float, default=None)
+    ap.add_argument("--transport", choices=("nccl", "gloo"), default="nccl",
+                    help="rank transport of a process grid (default nccl)")
     args = ap.parse_args(argv)
 
-    from . import api, config
+    from . import config
 
     params = config.resolve_configuration(config.parse_ini(args.ini), args.ini)
-    solver = api.Solver(params, device=args.device)
-    print(f"configuration: {params.configuration}")
+    mesh, device = None, args.device
+    dims = _process_grid(params)
+    if dims is not None:
+        import torch.distributed as dist
+
+        from . import kernels
+        from .parallel import launch
+
+        mesh, device = launch.from_environment(dims, args.transport, args.device)
+    try:
+        if mesh is not None and device.type == "cuda":
+            if mesh.rank == 0:        # one nvcc run: rank 0 builds, the rest load
+                kernels.lib()
+            dist.barrier()
+        return _run(params, args, mesh, device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _run(params, args, mesh, device) -> int:
+    from . import api, config
+
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"process grid {mesh.dims} over {mesh.size} ranks "
+            f"({mesh.comm.transport})")
+
+    solver = api.Solver(params, device=device, mesh=mesh)
+    say(f"configuration: {params.configuration}")
     plaq, header = solver.read_conf()
-    print(f"Desired average plaquette: {header:.13f} in [0,3]")
-    print(f"Computed average plaquette: {plaq:.13f} in [0,3]")
+    say(f"Desired average plaquette: {header:.13f} in [0,3]")
+    say(f"Computed average plaquette: {plaq:.13f} in [0,3]")
 
     t0 = time.perf_counter()
     solver.setup()
-    print(f"setup time: {time.perf_counter() - t0:.3f} seconds")
+    say(f"setup time: {time.perf_counter() - t0:.3f} seconds")
 
     rhs = config.make_rhs(params.right_hand_side, solver.lattice, seed=params.seed)
     x, info = solver.solve(rhs, tol=args.tol)
     exact = solver.true_residual(x, rhs)
-    print("+----------------------------------------------------------+")
-    print(f"|       FGMRES iterations: {info.iterations:<6d} coarse average: {info.coarse_average:<6.2f}   |")
-    print(f"| exact relative residual: ||r||/||b|| = {exact:e}      |")
-    print(f"| elapsed wall clock time: {info.solve_time:<8.4f} seconds                |")
-    print("+----------------------------------------------------------+")
+    say("+----------------------------------------------------------+")
+    say(f"|       FGMRES iterations: {info.iterations:<6d} coarse average: {info.coarse_average:<6.2f}   |")
+    say(f"| exact relative residual: ||r||/||b|| = {exact:e}      |")
+    say(f"| elapsed wall clock time: {info.solve_time:<8.4f} seconds                |")
+    say("+----------------------------------------------------------+")
     return 0 if info.converged else 1
 
 

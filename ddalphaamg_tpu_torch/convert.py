@@ -1,6 +1,8 @@
 """numpy -> port converters for state laid out the way the JAX package lays
 it out (logical, site-major arrays).  Tests use them to hand the JAX
-package's operators, test vectors and interpolation to the port.
+package's operators, test vectors and interpolation to the port.  With a
+mesh (parallel/mesh.SolverMesh) each returns this rank's slab of the
+global state instead.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ import torch
 
 from .operators.coarse import CoarseOperator
 from .operators.wilson import WilsonOperator
+from .parallel.mesh import shard_field, shard_interpolation, shard_operator
 
 
 def _t(a, dtype, device):
@@ -21,9 +24,11 @@ def gauge_field(U, device="cpu", dtype=torch.complex128) -> torch.Tensor:
     return _t(U, dtype, device)
 
 
-def wilson_operator(links, clover, device="cpu", dtype=torch.complex128) -> WilsonOperator:
+def wilson_operator(links, clover, device="cpu", dtype=torch.complex128,
+                    mesh=None) -> WilsonOperator:
     """Logical links [4,T,Z,Y,X,3,3] (= U/2) and clover [T,Z,Y,X,2,6,6]."""
-    return WilsonOperator(_t(links, dtype, device), _t(clover, dtype, device))
+    op = WilsonOperator(_t(links, dtype, device), _t(clover, dtype, device))
+    return op if mesh is None else shard_operator(mesh, op)
 
 
 def coarse_operator(A, Df, Db, device="cpu", dtype=torch.complex128) -> CoarseOperator:
@@ -34,17 +39,33 @@ def coarse_operator(A, Df, Db, device="cpu", dtype=torch.complex128) -> CoarseOp
                           _t(Db, dtype, device).reshape(4, -1, d, d))
 
 
-def fields(v, device="cpu", dtype=torch.complex128) -> torch.Tensor:
+def fields(v, device="cpu", dtype=torch.complex128, mesh=None) -> torch.Tensor:
     """Logical fields [*b, T, Z, Y, X, *dof] (fine dof (4, 3) or coarse (d,))
     -> dof-major [*b, dof, V]; test vectors are [N, T, Z, Y, X, 4, 3]."""
     a = np.asarray(v)
     fine = a.shape[-2:] == (4, 3) and a.ndim >= 6
     nb = a.ndim - (6 if fine else 5)
+    lattice = a.shape[nb:nb + 4]
     a = a.reshape(*a.shape[:nb], -1, 12 if fine else a.shape[-1])
-    return _t(np.moveaxis(a, -1, -2), dtype, device).contiguous()
+    out = _t(np.moveaxis(a, -1, -2), dtype, device).contiguous()
+    return out if mesh is None else shard_field(mesh, out, lattice)
 
 
-def interpolation(P, device="cpu", dtype=torch.complex128) -> torch.Tensor:
+def interpolation(P, device="cpu", dtype=torch.complex128, mesh=None) -> torch.Tensor:
     """[Tc, Zc, Yc, Xc, 2, N, m] -> [Vc, 2, N, m]."""
     a = np.asarray(P)
-    return _t(a.reshape(-1, *a.shape[4:]), dtype, device).contiguous()
+    out = _t(a.reshape(-1, *a.shape[4:]), dtype, device).contiguous()
+    return out if mesh is None else shard_interpolation(mesh, out, a.shape[:4])
+
+
+def packed_blocks_tz(Pk, lattice, device="cpu", dtype=torch.complex64,
+                     mesh=None) -> torch.Tensor:
+    """The JAX package's "tz" packed coarse blocks [K, T, Z, d*d, Y*X] (rows
+    j-major, pallas_coarse.pack_blocks) -> the port's [K, d (j), d (i), V],
+    or this rank's slab [K, d, d, V_l]."""
+    a = np.asarray(Pk)
+    K, t, z, dd, m = a.shape
+    d = int(round(dd ** 0.5))
+    a = a.reshape(K, t, z, d, d, m).transpose(0, 3, 4, 1, 2, 5).reshape(K, d, d, -1)
+    out = _t(a, dtype, device).contiguous()
+    return out if mesh is None else shard_field(mesh, out, lattice)

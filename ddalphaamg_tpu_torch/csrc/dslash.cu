@@ -163,12 +163,14 @@ __global__ void __launch_bounds__(128) dslash_kernel(cplx<R>* __restrict__ out, 
 }
 
 // K3: eta = C phi per site (C packed Hermitian: the clover or its inverse).
-// parity >= 0 keeps only sites with (t+z+y+x) % 2 == parity (the odd-site
-// inverse of the odd-even Schur solves); other sites get 0.
+// parity >= 0 keeps only sites with (t+z+y+x) % 2 == parity in global
+// coordinates (the odd-site inverse of the odd-even Schur solves); other
+// sites get 0.  A slab of a sharded lattice passes parity_offset, the parity
+// of its global offset (t0 + z0 + y0 + x0).
 template <typename R>
 __global__ void __launch_bounds__(128) clover_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ phi,
                                                      const R* __restrict__ cdiag, const cplx<R>* __restrict__ coff,
-                                                     Lattice L, int V, int batch, int parity) {
+                                                     Lattice L, int V, int batch, int parity, int parity_offset) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)batch * V) return;
   int b = (int)(idx / V);
@@ -177,7 +179,7 @@ __global__ void __launch_bounds__(128) clover_kernel(cplx<R>* __restrict__ out, 
   if (parity >= 0) {
     int c[4];
     site_coords(L, site, c);
-    if (((c[0] + c[1] + c[2] + c[3]) & 1) != parity) {
+    if (((c[0] + c[1] + c[2] + c[3] + parity_offset) & 1) != parity) {
 #pragma unroll
       for (int i = 0; i < 12; ++i) o[i * V + site] = cx<R>(0, 0);
       return;
@@ -218,11 +220,12 @@ int launch_dslash(void* out, const void* phi, const void* links, const void* cdi
 
 template <typename R>
 int launch_clover(void* out, const void* phi, const void* cdiag, const void* coff, int t, int z, int y, int x,
-                  int batch, int parity, void* stream) {
+                  int batch, int parity, int parity_offset, void* stream) {
   Lattice L = make_lattice(t, z, y, x);
   int V = t * z * y * x;
   clover_kernel<R><<<blocks_for((long long)batch * V), kThreads, 0, (cudaStream_t)stream>>>(
-      (cplx<R>*)out, (const cplx<R>*)phi, (const R*)cdiag, (const cplx<R>*)coff, L, V, batch, parity);
+      (cplx<R>*)out, (const cplx<R>*)phi, (const R*)cdiag, (const cplx<R>*)coff, L, V, batch, parity,
+      parity_offset);
   return (int)cudaGetLastError();
 }
 
@@ -241,15 +244,16 @@ int ddaamg_dslash_f64(void* out, const void* phi, const void* links, const void*
   return launch_dslash<double>(out, phi, links, cdiag, coff, t, z, y, x, batch, with_clover, stream);
 }
 
-// K3; parity -1 = all sites.
+// K3; parity -1 = all sites, parity_offset = the global coordinate sum of
+// site 0.
 int ddaamg_clover_f32(void* out, const void* phi, const void* cdiag, const void* coff, int t, int z, int y, int x,
-                      int batch, int parity, void* stream) {
-  return launch_clover<float>(out, phi, cdiag, coff, t, z, y, x, batch, parity, stream);
+                      int batch, int parity, int parity_offset, void* stream) {
+  return launch_clover<float>(out, phi, cdiag, coff, t, z, y, x, batch, parity, parity_offset, stream);
 }
 
 int ddaamg_clover_f64(void* out, const void* phi, const void* cdiag, const void* coff, int t, int z, int y, int x,
-                      int batch, int parity, void* stream) {
-  return launch_clover<double>(out, phi, cdiag, coff, t, z, y, x, batch, parity, stream);
+                      int batch, int parity, int parity_offset, void* stream) {
+  return launch_clover<double>(out, phi, cdiag, coff, t, z, y, x, batch, parity, parity_offset, stream);
 }
 
 }  // extern "C"

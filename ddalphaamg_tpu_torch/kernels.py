@@ -49,6 +49,8 @@ KERNELS = {
                  "ddalphaamg_tpu/operators/pallas_dslash.py:353"),
     "K4": Kernel("K4 coarse", "cuda", "ddalphaamg_tpu_torch/csrc/coarse.cu",
                  "ddalphaamg_tpu/operators/pallas_coarse.py:200"),
+    "K5": Kernel("K5 coarse halo", "cuda", "ddalphaamg_tpu_torch/csrc/coarse.cu",
+                 "ddalphaamg_tpu/operators/pallas_coarse.py:223"),
 }
 
 
@@ -66,10 +68,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ddaamg_dslash_f32": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-    "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-    "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 13 + [_P],
-    "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 13 + [_P],
+    "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 14 + [_P],
+    "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 14 + [_P],
+    "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 8 + [_P],
+    "ddaamg_coarse_halo_f64": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 _lib = None

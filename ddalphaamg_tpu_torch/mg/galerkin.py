@@ -24,6 +24,14 @@ lower-face sites, and the two are separated by masking the output (which
 needs aggregates at least 2 sites wide).  On coarse levels D_intra is K4
 with the aggregate as its mask block, and the single-direction crossings are
 plain rolls and batched contractions.
+
+On a sharded level (a stencil with a mesh) aggregates divide the slab, so
+A is local; a face crossing can leave the slab, so the fine crossings add
+the half-spinor face corrections to K2 (parallel/shard_ops.wilson_hopping)
+and the coarse ones shift the 2N basis fields across ranks
+(parallel/halo.halo_exchange_shift).  The result is this rank's slab of
+the coarse operator; gather() assembles the whole of it on every rank for
+a replicated next level.
 """
 
 from __future__ import annotations
@@ -34,14 +42,18 @@ import torch
 from ..operators import cuda_coarse, cuda_dslash
 from ..operators.coarse import CoarseOperator, neighbor
 from ..operators.stencil import CoarseStencilSoA, WilsonStencilSoA
+from ..parallel.halo import halo_exchange_shift
+from ..parallel.mesh import gather_field
+from ..parallel.shard_ops import wilson_hopping
 from .interpolation import Aggregation, assemble_basis, restrict
 
 
-def _face_masks(lattice, coarsening) -> tuple[np.ndarray, np.ndarray]:
-    """(upper, lower) aggregate-face masks [4, V]."""
+def _face_masks(lattice, coarsening, offsets=(0, 0, 0, 0)) -> tuple[np.ndarray, np.ndarray]:
+    """(upper, lower) aggregate-face masks [4, V] of a lattice (or slab)
+    whose site 0 sits at the global coordinates `offsets`."""
     up, lo = [], []
     for mu in range(4):
-        coord = np.arange(lattice[mu])
+        coord = np.arange(lattice[mu]) + offsets[mu]
         shape = [1, 1, 1, 1]
         shape[mu] = lattice[mu]
         u = ((coord % coarsening[mu]) == (coarsening[mu] - 1)).reshape(shape)
@@ -66,7 +78,8 @@ def build_coarse_operator(stencil, agg: Aggregation, P: torch.Tensor) -> CoarseO
                          f"2 wide, got {agg.coarsening}")
     B = assemble_basis(agg, P).to(stencil.dtype)
     lat = tuple(agg.fine_lattice)
-    up, lo = _face_masks(lat, agg.coarsening)
+    mesh = stencil.mesh
+    up, lo = _face_masks(lat, agg.coarsening, stencil.offsets)
     rdtype = stencil.even.dtype
     up = torch.as_tensor(up, dtype=rdtype, device=B.device)
     lo = torch.as_tensor(lo, dtype=rdtype, device=B.device)
@@ -79,7 +92,10 @@ def build_coarse_operator(stencil, agg: Aggregation, P: torch.Tensor) -> CoarseO
         for mu in range(4):
             face = torch.zeros_like(links)
             face[mu] = links[mu] * up[mu]
-            hop = cuda_dslash.hopping(face, B, lat)
+            if mesh is None:
+                hop = cuda_dslash.hopping(face, B, lat)
+            else:
+                hop = wilson_hopping(mesh, face, B, lat)
             Df.append(_columns(agg, P, hop * up[mu]))
             Db.append(_columns(agg, P, hop * lo[mu]))
     elif isinstance(stencil, CoarseStencilSoA):
@@ -89,10 +105,22 @@ def build_coarse_operator(stencil, agg: Aggregation, P: torch.Tensor) -> CoarseO
         Df, Db = [], []
         for mu in range(4):
             for k, mask, out in ((1 + mu, up[mu], Df), (5 + mu, lo[mu], Db)):
-                w = neighbor(B, k, lat) * mask
+                if mesh is None:
+                    w = neighbor(B, k, lat) * mask
+                else:
+                    w = halo_exchange_shift(mesh, B, -1 if k < 5 else 1, mu, lat) * mask
                 out.append(_columns(agg, P, torch.einsum(
                     "jix,bjx->bix", Pk[k], w)))
     else:
         raise TypeError(type(stencil))
     return CoarseOperator(A=A.contiguous(), Df=torch.stack(Df),
                           Db=torch.stack(Db))
+
+
+def gather(mesh, cop: CoarseOperator, lattice_local) -> CoarseOperator:
+    """The whole coarse operator on every rank from each rank's slab of it
+    (the replicated coarsest level's assembly)."""
+    def g(a):     # sites on axis -3: [*, V_l, d, d]
+        return gather_field(mesh, a.movedim(-3, -1), lattice_local).movedim(-1, -3).contiguous()
+
+    return CoarseOperator(A=g(cop.A), Df=g(cop.Df), Db=g(cop.Db))

@@ -17,6 +17,17 @@ Reference call paths rebuilt here (as in the JAX package's mg/hierarchy.py):
 
 Fields of every level are [dof, V] (operators/stencil.py); the per-TV setup
 cycles run one test vector at a time.
+
+Under a mesh (MGConfig.mesh, a t/z process grid) the fine level and every
+intermediate level whose slab keeps at least min_local_sites sites are
+sharded: each rank holds its slab of the stencil, the test vectors and P,
+and the aggregates divide the slab.  The coarsest level, and any level
+below a replicated one, is replicated (the reference's gathering,
+src/gathering_generic.c:44-209): its right-hand side is all-gathered after
+the restriction, every rank solves the same problem on the same bits, and
+each keeps its slab of the solution for the interpolation.  Initial test
+vectors are drawn on the global lattice and then sliced, so a sharded run
+builds the hierarchy a single-rank run builds.
 """
 
 from __future__ import annotations
@@ -30,9 +41,10 @@ import torch
 from ..geometry import Geometry
 from ..operators.stencil import ODD, CoarseStencilSoA, WilsonStencilSoA
 from ..operators.wilson import WilsonOperator
+from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
 from ..smoothers.sap import SchwarzPreconditioner, sap_smooth, sap_smooth_from
 from ..solvers.device_gmres import device_gcr
-from .galerkin import build_coarse_operator
+from .galerkin import build_coarse_operator, gather
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
 
 
@@ -65,6 +77,11 @@ class MGConfig:
     scheme: str = "red_black"
     dtype: torch.dtype = torch.complex64
     seed: int = 42
+    # t/z process grid (parallel/mesh.SolverMesh) or None for one rank
+    mesh: object = None
+    # an intermediate level whose slab would hold fewer sites is replicated
+    # instead of sharded (the JAX package's default, mg/hierarchy.py:315)
+    min_local_sites: int = 256
 
     @property
     def num_levels(self):
@@ -87,18 +104,37 @@ class MGLevel:
     def is_coarsest(self):
         return self.next is None
 
+    @property
+    def gathers(self) -> bool:
+        """True where a sharded level meets a replicated next level."""
+        return self.stencil.mesh is not None and self.next.stencil.mesh is None
 
-def _normalize(v):
-    """Each field of a stack (leading axis) scaled to unit norm."""
-    n = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=1)
+
+def _normalize(v, s):
+    """Each field of a stack (leading axis) of stencil s's level scaled to
+    unit norm (global norms on a sharded level)."""
+    flat = v.reshape(v.shape[0], -1)
+    if s.mesh is None:
+        n = torch.linalg.vector_norm(flat, dim=1)
+    else:
+        n = torch.sqrt(s.allsum((flat.conj() * flat).real.sum(dim=1)))
     return v / n.reshape(-1, *([1] * (v.dim() - 1)))
+
+
+def _slab_geom(geom: Geometry, mesh) -> Geometry:
+    """The geometry of this rank's slab of a level (geom itself unsharded)."""
+    if mesh is None:
+        return geom
+    return Geometry(lattice=local_lattice(mesh, geom.lattice),
+                    block=tuple(geom.block), dof=geom.dof)
 
 
 class Multigrid:
     """The AMG preconditioner: hierarchy + cycles + adaptive setup.  Initial
     test vectors are drawn from a torch.Generator seeded with cfg.seed;
     set_test_vectors injects others (tests give the JAX package and the
-    port the same vectors this way)."""
+    port the same vectors this way).  Under cfg.mesh, op is this rank's
+    slab of the operator (parallel/mesh.shard_operator)."""
 
     def __init__(self, op: WilsonOperator, cfg: MGConfig):
         self.cfg = cfg
@@ -116,24 +152,50 @@ class Multigrid:
             lvl = lvl.next
         return out
 
+    def _level_mesh(self, depth: int, geom: Geometry, prev_mesh):
+        """The mesh a level is sharded over, or None where it is replicated:
+        the coarsest level, a level below a replicated one, a level the
+        mesh does not divide and an intermediate level whose slab would
+        hold fewer than min_local_sites sites."""
+        cfg = self.cfg
+        mesh = cfg.mesh
+        if mesh is None or (depth > 0 and (prev_mesh is None
+                                           or depth == cfg.num_levels - 1)):
+            return None
+        if not mesh.divides(geom.lattice):
+            if depth == 0:
+                raise ValueError(f"mesh {mesh.dims} does not divide the "
+                                 f"lattice {geom.lattice}")
+            return None
+        loc = local_lattice(mesh, geom.lattice)
+        if depth > 0 and int(np.prod(loc)) < cfg.min_local_sites:
+            return None
+        check_blocks(mesh, geom.lattice, geom.block)
+        return mesh
+
     def _build(self, op: WilsonOperator) -> MGLevel:
         cfg = self.cfg
         gen = torch.Generator().manual_seed(int(cfg.seed))
         levels: list[MGLevel] = []
         for d, lc in enumerate(cfg.levels):
             geom = Geometry(lattice=tuple(lc.lattice), block=tuple(lc.block))
+            mesh = self._level_mesh(d, geom, levels[-1].stencil.mesh if levels else None)
             if d == 0:
-                stencil = WilsonStencilSoA.build(op, geom, dtype=cfg.dtype)
+                stencil = WilsonStencilSoA.build(op, _slab_geom(geom, mesh),
+                                                 dtype=cfg.dtype, mesh=mesh)
             else:
                 prev = levels[-1]
+                coarsening = tuple(prev.geom.lattice[mu] // lc.lattice[mu]
+                                   for mu in range(4))
+                if prev.stencil.mesh is not None:
+                    check_blocks(prev.stencil.mesh, prev.geom.lattice,
+                                 coarsening, "aggregate")
                 prev.agg = Aggregation(
-                    fine_lattice=prev.geom.lattice,
-                    coarsening=tuple(prev.geom.lattice[mu] // lc.lattice[mu]
-                                     for mu in range(4)),
+                    fine_lattice=prev.stencil.lattice, coarsening=coarsening,
                     num_vectors=prev.cfg.num_test_vectors,
                     fine_dpc=prev.stencil.field_shape[0] // 2)
                 prev.test_vectors = self._initial_test_vectors(prev, gen)
-                prev.P, stencil = self._resetup(prev, geom)
+                prev.P, stencil = self._resetup(prev, geom, mesh)
             level = MGLevel(depth=d, geom=geom, cfg=lc, stencil=stencil)
             if d < cfg.num_levels - 1:
                 # reference: block odd-even solver at depth 0 only
@@ -150,22 +212,27 @@ class Multigrid:
         (reference interpolation_PRECISION_define,
         src/setup_generic.c:215-246), all test vectors as one batch."""
         s = level.stencil
-        shape = (level.cfg.num_test_vectors, *s.field_shape)
+        shape = (level.cfg.num_test_vectors, s.field_shape[0], level.geom.num_sites)
         rdtype = torch.empty((), dtype=self.cfg.dtype).real.dtype
         tv = torch.complex(torch.randn(shape, generator=gen, dtype=rdtype),
                            torch.randn(shape, generator=gen, dtype=rdtype))
-        v = tv.to(device=s.device, dtype=s.dtype)
+        v = s.slab(tv).to(device=s.device, dtype=s.dtype)
         sm = level.smoother
         for ncy in (1, 2, 3):
             v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
-        return _normalize(v)
+        return _normalize(v, s)
 
-    def _resetup(self, level: MGLevel, next_geom: Geometry):
+    def _resetup(self, level: MGLevel, next_geom: Geometry, next_mesh):
         """One coarsening rebuild: P from the level's test vectors, then the
-        Galerkin coarse stencil."""
+        Galerkin coarse stencil (on next_mesh, or gathered whole onto every
+        rank when the next level is replicated)."""
         P = build_interpolation(level.agg, level.test_vectors)
         cop = build_coarse_operator(level.stencil, level.agg, P)
-        return P, CoarseStencilSoA.build(cop, next_geom, dtype=self.cfg.dtype)
+        mesh = level.stencil.mesh
+        if mesh is not None and next_mesh is None:
+            cop = gather(mesh, cop, level.agg.coarse_lattice)
+        return P, CoarseStencilSoA.build(cop, _slab_geom(next_geom, next_mesh),
+                                         dtype=self.cfg.dtype, mesh=next_mesh)
 
     def re_setup(self, level: MGLevel):
         """Rebuild P and the Galerkin operators from `level` downward
@@ -173,7 +240,7 @@ class Multigrid:
         lvl = level
         while lvl is not None and not lvl.is_coarsest:
             nxt = lvl.next
-            lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom)
+            lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom, nxt.stencil.mesh)
             if nxt.smoother is not None:
                 nxt.smoother.replace_stencil(nxt.stencil)
             lvl = nxt
@@ -186,7 +253,8 @@ class Multigrid:
         s = level.stencil
         n = level.cfg.num_test_vectors
         tv = torch.as_tensor(np.asarray(tvs)).reshape(n, *level.geom.lattice, -1)
-        level.test_vectors = s.from_logical(tv).to(device=s.device, dtype=s.dtype)
+        level.test_vectors = s.slab(s.from_logical(tv)).to(device=s.device,
+                                                           dtype=s.dtype)
         self.re_setup(level)
 
     # ------------------------------------------------------------------
@@ -207,14 +275,29 @@ class Multigrid:
             b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
             x_e, iters, _, _ = device_gcr(schur, b_e, m=cfg.coarse_iter,
                                           tol=cfg.coarse_tol,
-                                          n_restarts=cfg.coarse_restart)
+                                          n_restarts=cfg.coarse_restart,
+                                          allsum=s.allsum)
             x_e = s.even * x_e
             x = x_e + s.self_inv(b - s.hop(x_e), ODD)
         else:
             x, iters, _, _ = device_gcr(s.full_op, b, m=cfg.coarse_iter,
                                         tol=cfg.coarse_tol,
-                                        n_restarts=cfg.coarse_restart)
+                                        n_restarts=cfg.coarse_restart,
+                                        allsum=s.allsum)
         return x, np.array([iters, iters + cfg.coarse_restart], dtype=np.float64)
+
+    def _restrict(self, level: MGLevel, r):
+        """P^H r, gathered whole onto every rank for a replicated next level."""
+        b_c = restrict(level.agg, level.P, r)
+        if level.gathers:
+            b_c = gather_field(level.stencil.mesh, b_c, level.agg.coarse_lattice)
+        return b_c
+
+    def _interpolate(self, level: MGLevel, x_c):
+        """P x_c, from this rank's slab of a replicated next level's x_c."""
+        if level.gathers:
+            x_c = shard_field(level.stencil.mesh, x_c, level.next.geom.lattice)
+        return interpolate(level.agg, level.P, x_c)
 
     def _cycle(self, depth: int, eta, kcycle_tol: float, collect=None):
         """One preconditioning cycle at `depth` (vcycle_PRECISION); returns
@@ -228,7 +311,7 @@ class Multigrid:
         x = None
         for _ in range(level.cfg.n_cy):
             r = eta if x is None else eta - s.full_op(x)
-            b_c = restrict(level.agg, level.P, r)
+            b_c = self._restrict(level, r)
             if nxt.is_coarsest:
                 x_c, it = self._coarsest_solve(nxt, b_c)
             elif cfg.kcycle:
@@ -237,7 +320,8 @@ class Multigrid:
 
                 x_c, _, _, it = device_gcr(
                     nxt.stencil.full_op, b_c, m=cfg.kcycle_length,
-                    tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec)
+                    tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec,
+                    allsum=nxt.stencil.allsum)
                 it = np.zeros(2) if it is None else it
             else:
                 x_c, it = self._cycle(depth + 1, b_c, kcycle_tol,
@@ -245,7 +329,7 @@ class Multigrid:
             counters = counters + it
             if collect is not None:
                 collect[depth + 1] = x_c
-            corr = interpolate(level.agg, level.P, x_c)
+            corr = self._interpolate(level, x_c)
             x = corr if x is None else x + corr
             x = sap_smooth_from(s, level.smoother.colors, eta, x,
                                 cycles=level.cfg.post_smooth_iter,
@@ -282,7 +366,8 @@ class Multigrid:
             return self._cycle(0, w, ktol)
 
         z, iters, _, counters = device_gcr(s.full_op, r.to(s.dtype), m=m,
-                                           tol=rel_tol, n_restarts=1, prec=prec)
+                                           tol=rel_tol, n_restarts=1, prec=prec,
+                                           allsum=s.allsum)
         if counters is not None:
             self._count(counters)
         return z, iters
@@ -317,15 +402,16 @@ class Multigrid:
         for j in range(setup_iter):
             tvs = level.test_vectors
             n = tvs.shape[0]
-            q = block_qr(tvs.reshape(n, -1).transpose(0, 1))
+            q = block_qr(tvs.reshape(n, -1).transpose(0, 1), level.stencil.allsum)
             xs, collect = self._setup_cycles(level, q.transpose(0, 1).reshape(tvs.shape))
-            level.test_vectors = _normalize(xs)
+            level.test_vectors = _normalize(xs, level.stencil)
             # test_vector_PRECISION_update: coarse solutions of the cycles
             lvl = level.next
             while lvl is not None and not lvl.is_coarsest:
                 if lvl.depth in collect and lvl.test_vectors is not None:
                     k = min(n, lvl.test_vectors.shape[0])
-                    lvl.test_vectors[:k] = _normalize(collect[lvl.depth][:k])
+                    lvl.test_vectors[:k] = _normalize(collect[lvl.depth][:k],
+                                                      lvl.stencil)
                 lvl = lvl.next
             self.re_setup(level)
             if level.depth == 0 and not level.next.is_coarsest:

@@ -68,19 +68,26 @@ def from_aggregates(agg: Aggregation, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:nb], 2 * agg.fine_dpc, -1).contiguous()
 
 
-def block_qr(a: torch.Tensor) -> torch.Tensor:
+def block_qr(a: torch.Tensor, allsum=None) -> torch.Tensor:
     """Orthonormal columns of batched [..., m, n] blocks by classical
     Gram-Schmidt with double projection (CGS-2; the JAX package's
     cplx.block_qr, at least the orthogonality of the reference's
-    reorthogonalized MGS, src/setup_generic.c:291-296)."""
+    reorthogonalized MGS, src/setup_generic.c:291-296).  With allsum the
+    m rows are this rank's share of rows spread over the ranks, and every
+    inner product is summed over them."""
     q = torch.zeros_like(a)
     for k in range(a.shape[-1]):
         v = a[..., k:k + 1]
         if k:
             for _ in range(2):
                 h = q[..., :k].transpose(-1, -2).conj() @ v
+                if allsum is not None:
+                    h = allsum(h)
                 v = v - q[..., :k] @ h
-        nrm = torch.linalg.vector_norm(v, dim=-2, keepdim=True)
+        if allsum is None:
+            nrm = torch.linalg.vector_norm(v, dim=-2, keepdim=True)
+        else:
+            nrm = torch.sqrt(allsum((v.conj() * v).real.sum(dim=-2, keepdim=True)))
         q[..., k:k + 1] = v / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
     return q
 

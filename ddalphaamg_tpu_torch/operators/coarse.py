@@ -6,9 +6,15 @@ Reference: src/coarse_operator_generic.c (apply_coarse_operator_PRECISION,
 (chirality, k), so gamma5_c = diag(-1_N, +1_N), consistent with the fine
 convention gamma5 = diag(-1, -1, +1, +1) over spins.
 
-Packed layout read by K4: blocks [K, d (j), d (i), V] with sites fastest;
-term k = 0 is the self-coupling A, k = 1 + mu the forward coupling Df_mu to
-phi(x + mu), k = 5 + mu the backward coupling Db_mu to phi(x - mu).
+Packed layout read by K4 and K5: blocks [K, d (j), d (i), V] with sites
+fastest; term k = 0 is the self-coupling A, k = 1 + mu the forward coupling
+Df_mu to phi(x + mu), k = 5 + mu the backward coupling Db_mu to phi(x - mu).
+
+On one slab of a lattice sharded along t and/or z, the hops that leave the
+slab read faces received from the neighbor ranks: halos = {mu: (fwd, bwd)}
+with fwd = v(x + mu) on the slab's last mu slice and bwd = v(x - mu) on its
+first, each [*batch, d, V / n_mu] in lexicographic order of the remaining
+coordinates.
 """
 
 from __future__ import annotations
@@ -54,21 +60,34 @@ def intra_block_masks(lattice, block) -> tuple[np.ndarray, np.ndarray]:
     return np.stack(fwd), np.stack(bwd)
 
 
-def neighbor(v: torch.Tensor, k: int, lattice) -> torch.Tensor:
-    """The field that term k reads: v(x), v(x + mu) or v(x - mu)."""
+def neighbor(v: torch.Tensor, k: int, lattice, halos=None) -> torch.Tensor:
+    """The field that term k reads: v(x), v(x + mu) or v(x - mu), wrapped
+    inside the lattice or, on an axis in halos, filled from the faces."""
     if k == 0:
         return v
     mu = (k - 1) % 4
     shape = v.shape
     w = v.reshape(*shape[:-1], *lattice)
-    w = torch.roll(w, -1 if k < 5 else 1, w.dim() - 4 + mu)
+    ax = w.dim() - 4 + mu
+    if halos is not None and mu in halos:
+        n = lattice[mu]
+        face_shape = list(w.shape)
+        face_shape[ax] = 1
+        if k < 5:
+            w = torch.cat([w.narrow(ax, 1, n - 1),
+                           halos[mu][0].reshape(face_shape)], ax)
+        else:
+            w = torch.cat([halos[mu][1].reshape(face_shape),
+                           w.narrow(ax, 0, n - 1)], ax)
+    else:
+        w = torch.roll(w, -1 if k < 5 else 1, ax)
     return w.reshape(shape)
 
 
 def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
-                       parity=None):
+                       parity=None, parity_offset: int = 0):
     """Plain K4: out[i, x] = sum_{k in terms} sum_j B_k[j, i, x] v(n_k(x))[j]
-    with the same mask and parity semantics as the kernel."""
+    with the same mask and (global) parity semantics as the kernel."""
     lattice = tuple(lattice)
     masks = None
     if mask_block is not None:
@@ -82,5 +101,16 @@ def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
             w = w * masks[k - 1]
         out = out + torch.einsum("jix,...jx->...ix", blocks[k], w)
     if parity is not None:
-        out = out * parity_mask(lattice, parity, v.real.dtype, v.device)
+        out = out * parity_mask(lattice, parity, v.real.dtype, v.device,
+                                parity_offset)
+    return out
+
+
+def coarse_apply_halo_plain(blocks, v, lattice, halos, terms=(0, 9)):
+    """Plain K5: coarse_apply_plain on one slab whose hops across the
+    sharded axes read the received faces (halos, see the module note)."""
+    out = torch.zeros_like(v)
+    for k in range(*terms):
+        out = out + torch.einsum("jix,...jx->...ix", blocks[k],
+                                 neighbor(v, k, tuple(lattice), halos))
     return out

@@ -1,8 +1,9 @@
-"""Wrapper of the coarse-operator kernel K4 (csrc/coarse.cu).
+"""Wrappers of the coarse-operator kernels K4 and K5 (csrc/coarse.cu).
 
-For tensors on the CPU it takes the plain version
-(operators/coarse.coarse_apply_plain); for CUDA tensors it launches the
-kernel or raises.  Fields may carry a leading batch axis: v [B, d, V].
+For tensors on the CPU they take the plain versions
+(operators/coarse.coarse_apply_plain / coarse_apply_halo_plain); for CUDA
+tensors they launch the kernel or raise.  Fields may carry a leading batch
+axis: v [B, d, V].
 """
 
 from __future__ import annotations
@@ -12,44 +13,79 @@ import math
 import torch
 
 from .. import kernels
-from .coarse import coarse_apply_plain
+from .coarse import coarse_apply_halo_plain, coarse_apply_plain
 
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64"}
 
 
+def _check(blocks, v, lattice, terms, others=()):
+    if v.dtype not in _SUFFIX or blocks.dtype != v.dtype:
+        raise TypeError(f"coarse kernel takes matching complex64/complex128 "
+                        f"operands, got {blocks.dtype} and {v.dtype}")
+    for t in (blocks, *others):
+        if t.device != v.device or t.dtype != v.dtype:
+            raise ValueError("blocks, field and faces must share device and dtype")
+    if not all(t.is_contiguous() for t in (blocks, v, *others)):
+        raise ValueError("operands must be contiguous")
+    K, d, d2, V = blocks.shape
+    if d != d2 or V != math.prod(lattice) or v.shape[-2:] != (d, V):
+        raise ValueError(f"shapes {tuple(blocks.shape)} / {tuple(v.shape)} "
+                         f"do not match lattice {lattice}")
+    k0, k1 = terms
+    if not 0 <= k0 < k1 <= K:
+        raise ValueError(f"terms {terms} outside [0, {K})")
+    return d, V, int(v.numel() // (d * V))
+
+
 def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
-                 parity=None):
+                 parity=None, parity_offset: int = 0):
     """K4: sum over the block terms [k0, k1) of blocks [K, d, d, V] applied
     to the neighbor fields of v; mask_block (bt, bz, by, bx) drops hops that
     cross a block face; parity 0/1 keeps only the sites of that parity
-    (meaningful for the self term)."""
+    (meaningful for the self term), counted on the global lattice whose
+    coordinate sum at local site 0 has the parity of parity_offset."""
     lattice = tuple(lattice)
     k0, k1 = terms
     if parity is not None and (k0, k1) != (0, 1):
         raise ValueError("parity selection applies to the self term only")
     if v.device.type == "cpu":
         return coarse_apply_plain(blocks, v, lattice, terms, mask_block,
-                                  parity)
-    if v.dtype not in _SUFFIX or blocks.dtype != v.dtype:
-        raise TypeError(f"coarse kernel takes matching complex64/complex128 "
-                        f"operands, got {blocks.dtype} and {v.dtype}")
-    if blocks.device != v.device:
-        raise ValueError("blocks and field must be on one device")
-    if not (blocks.is_contiguous() and v.is_contiguous()):
-        raise ValueError("operands must be contiguous")
-    K, d, d2, V = blocks.shape
-    if d != d2 or V != math.prod(lattice) or v.shape[-2:] != (d, V):
-        raise ValueError(f"shapes {tuple(blocks.shape)} / {tuple(v.shape)} "
-                         f"do not match lattice {lattice}")
-    if not 0 <= k0 < k1 <= K:
-        raise ValueError(f"terms {terms} outside [0, {K})")
-    batch = int(v.numel() // (d * V))
+                                  parity, parity_offset)
+    d, V, batch = _check(blocks, v, lattice, terms)
     out = torch.empty_like(v)
     mb = tuple(mask_block) if mask_block is not None else (0, 0, 0, 0)
     fn = getattr(kernels.lib(), f"ddaamg_coarse_{_SUFFIX[v.dtype]}")
     kernels.KERNELS["K4"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(), d, k0, k1,
-            *lattice, *mb, -1 if parity is None else int(parity), batch,
-            kernels.stream_ptr(v.device))
+            *lattice, *mb, -1 if parity is None else int(parity),
+            int(parity_offset) & 1, batch, kernels.stream_ptr(v.device))
     kernels.check(rc, "coarse")
+    return out
+
+
+def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9)):
+    """K5: the terms [k0, k1) on one slab of a t/z-sharded lattice; halos =
+    {mu: (fwd, bwd)} for the sharded axes mu in (0, 1), each face
+    [*batch, d, V / lattice[mu]] (operators/coarse.py describes them)."""
+    lattice = tuple(lattice)
+    if not halos or any(mu not in (0, 1) for mu in halos):
+        raise ValueError(f"K5 takes faces of the t and/or z axes, got {sorted(halos)}")
+    if v.device.type == "cpu":
+        return coarse_apply_halo_plain(blocks, v, lattice, halos, terms)
+    faces = [f for mu in sorted(halos) for f in halos[mu]]
+    d, V, batch = _check(blocks, v, lattice, terms, faces)
+    for mu, pair in halos.items():
+        for f in pair:
+            if f.numel() != batch * d * (V // lattice[mu]):
+                raise ValueError(f"face {tuple(f.shape)} does not match a "
+                                 f"[{batch}, {d}, {V // lattice[mu]}] face of axis {mu}")
+    ptr = {mu: tuple(f.data_ptr() for f in pair) for mu, pair in halos.items()}
+    none = (None, None)
+    out = torch.empty_like(v)
+    fn = getattr(kernels.lib(), f"ddaamg_coarse_halo_{_SUFFIX[v.dtype]}")
+    kernels.KERNELS["K5"].launches += 1
+    rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(),
+            *ptr.get(0, none), *ptr.get(1, none), d, *terms, *lattice, batch,
+            kernels.stream_ptr(v.device))
+    kernels.check(rc, "coarse halo")
     return out

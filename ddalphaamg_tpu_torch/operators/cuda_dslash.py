@@ -78,11 +78,13 @@ def hopping(links, phi, lattice):
     return _launch_dslash(links, None, None, phi, tuple(lattice), False)
 
 
-def clover(cdiag, coff, phi, lattice, parity=None):
+def clover(cdiag, coff, phi, lattice, parity=None, parity_offset: int = 0):
     """K3: the packed clover (or clover inverse) per site; parity 0/1
-    restricts the result to even/odd sites."""
+    restricts the result to even/odd sites, counted on the global lattice
+    whose coordinate sum at local site 0 has the parity of parity_offset."""
     if phi.device.type == "cpu":
-        return fast.clover_apply_soa(cdiag, coff, phi, lattice, parity)
+        return fast.clover_apply_soa(cdiag, coff, phi, lattice, parity,
+                                     parity_offset)
     _check(phi, cdiag, coff)
     if coff.dtype != phi.dtype or cdiag.dtype != phi.real.dtype:
         raise TypeError("clover and spinor dtypes differ")
@@ -93,7 +95,7 @@ def clover(cdiag, coff, phi, lattice, parity=None):
     kernels.KERNELS["K3"].launches += 1
     rc = fn(out.data_ptr(), phi.data_ptr(), cdiag.data_ptr(), coff.data_ptr(),
             *lattice, batch, -1 if parity is None else int(parity),
-            kernels.stream_ptr(phi.device))
+            int(parity_offset) & 1, kernels.stream_ptr(phi.device))
     kernels.check(rc, "clover")
     return out
 

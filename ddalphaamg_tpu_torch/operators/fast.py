@@ -52,11 +52,13 @@ def clover_to_soa(clov: torch.Tensor) -> torch.Tensor:
     return clov.permute(4, 5, 6, 0, 1, 2, 3).reshape(2, 6, 6, -1).contiguous()
 
 
-def parity_mask(lattice, parity: int, dtype=torch.float64, device=None):
-    """[V] mask of the sites with (t+z+y+x) % 2 == parity."""
+def parity_mask(lattice, parity: int, dtype=torch.float64, device=None,
+                offset: int = 0):
+    """[V] mask of the sites with (t+z+y+x) % 2 == parity; offset is the
+    coordinate sum of site 0 on the global lattice (a slab's offset)."""
     idx = [torch.arange(n, device=device) for n in lattice]
     t, z, y, x = torch.meshgrid(*idx, indexing="ij")
-    return (((t + z + y + x) % 2) == parity).to(dtype).reshape(-1)
+    return (((t + z + y + x + offset) % 2) == parity).to(dtype).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -91,14 +93,16 @@ def unpack_clover(cdiag: torch.Tensor, coff: torch.Tensor) -> torch.Tensor:
     return entries.index_select(1, idx).reshape(2, 6, 6, -1)
 
 
-def clover_apply_soa(cdiag, coff, phi, lattice=None, parity=None):
+def clover_apply_soa(cdiag, coff, phi, lattice=None, parity=None,
+                     parity_offset: int = 0):
     """Plain K3: eta = C phi per site with C packed; parity (with lattice)
-    keeps only the sites of that parity."""
+    keeps only the sites of that parity (global parity: see parity_mask)."""
     dense = unpack_clover(cdiag, coff)
     ph = phi.reshape(*phi.shape[:-2], 2, 6, phi.shape[-1])
     out = torch.einsum("cijx,...cjx->...cix", dense, ph).reshape(phi.shape)
     if parity is not None:
-        out = out * parity_mask(lattice, parity, out.real.dtype, out.device)
+        out = out * parity_mask(lattice, parity, out.real.dtype, out.device,
+                                parity_offset)
     return out
 
 

@@ -13,8 +13,13 @@ A stencil exposes (whole-lattice, mask-based; blocks never materialize):
 Fields of every level share one layout, [*batch, dof, V] (dof-major, sites
 fastest: 12 spin-color dof on the fine level, d = 2N on coarse levels), so
 block reductions and the layout hooks are common to both stencils.  Every
-operator goes through a kernel wrapper (K1-K4), which runs the plain PyTorch
+operator goes through a kernel wrapper (K1-K5), which runs the plain PyTorch
 version only for tensors on the CPU.
+
+A stencil with a mesh (parallel/mesh.SolverMesh) is one rank's slab of a
+sharded level: geom is the slab's geometry, full_op and hop exchange faces
+with the neighbor ranks (parallel/shard_ops.py), the other operators stay
+local, and parities count global coordinates.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 
 from ..geometry import Geometry
+from ..parallel import comm, shard_ops
+from ..parallel.mesh import shard_field
 from . import cuda_coarse, cuda_dslash, fast
 from .coarse import CoarseOperator
 from .wilson import WilsonOperator
@@ -56,14 +63,50 @@ def _block_index(lattice, block, device: str) -> torch.Tensor:
     return torch.as_tensor(b, device=device)
 
 
+def _slab_parity(mesh, lattice) -> int:
+    """Parity of a slab's global offset (0 on one rank)."""
+    return 0 if mesh is None else mesh.parity(lattice)
+
+
 class _SoALayout:
     """Layout hooks and block reductions shared by both stencils."""
 
     geom: Geometry
+    mesh: object
 
     @property
     def lattice(self):
         return tuple(self.geom.lattice)
+
+    @property
+    def global_geom(self) -> Geometry:
+        if self.mesh is None:
+            return self.geom
+        return Geometry(lattice=self.mesh.global_lattice(self.lattice),
+                        block=tuple(self.geom.block), dof=self.geom.dof)
+
+    @property
+    def offsets(self) -> tuple:
+        """Global coordinates of the slab's site 0."""
+        return (0, 0, 0, 0) if self.mesh is None else self.mesh.offsets(self.lattice)
+
+    @property
+    def parity_offset(self) -> int:
+        return _slab_parity(self.mesh, self.lattice)
+
+    @property
+    def allsum(self):
+        """Sum over the mesh of per-slab partial sums; None on one rank."""
+        if self.mesh is None:
+            return None
+        return functools.partial(comm.all_reduce_sum, self.mesh)
+
+    def slab(self, v):
+        """This rank's slab of a global field [*, V_global] (v itself on
+        one rank)."""
+        if self.mesh is None:
+            return v
+        return shard_field(self.mesh, v, self.global_geom.lattice)
 
     def from_logical(self, v):
         """[*b, T, Z, Y, X, dof] -> [*b, dof, V]."""
@@ -100,10 +143,13 @@ class WilsonStencilSoA(_SoALayout):
     even: torch.Tensor           # [V] real
     odd: torch.Tensor
     geom: Geometry
+    mesh: object = None
 
     @classmethod
-    def build(cls, op: WilsonOperator, geom: Geometry, dtype=None) -> "WilsonStencilSoA":
-        """From the logical operator; the clover inverse is formed from the
+    def build(cls, op: WilsonOperator, geom: Geometry, dtype=None,
+              mesh=None) -> "WilsonStencilSoA":
+        """From the logical operator (this rank's slab of it under a mesh,
+        with geom the slab's geometry); the clover inverse is formed from the
         operator's own precision before any cast to dtype."""
         dtype = dtype or op.links.dtype
         clov = fast.clover_to_soa(op.clover)
@@ -114,12 +160,13 @@ class WilsonStencilSoA(_SoALayout):
                                 device=links.device)
         cdiag, coff = cuda_dslash.pack_clover(clov)
         cdiag_inv, coff_inv = cuda_dslash.pack_clover(clov_inv)
-        even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device)
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device,
+                               _slab_parity(mesh, geom.lattice))
         return cls(links=links,
                    links_intra=(links * intra[:, None, None]).contiguous(),
                    cdiag=cdiag.to(rdtype), coff=coff.to(dtype),
                    cdiag_inv=cdiag_inv.to(rdtype), coff_inv=coff_inv.to(dtype),
-                   even=even, odd=1.0 - even, geom=geom)
+                   even=even, odd=1.0 - even, geom=geom, mesh=mesh)
 
     @property
     def dtype(self):
@@ -134,6 +181,9 @@ class WilsonStencilSoA(_SoALayout):
         return (12, self.geom.num_sites)
 
     def full_op(self, v):
+        if self.mesh is not None:
+            return shard_ops.wilson_full(self.mesh, self.links, self.cdiag,
+                                         self.coff, v, self.lattice)
         return cuda_dslash.d_plus_clover(self.links, self.cdiag, self.coff, v,
                                          self.lattice)
 
@@ -146,7 +196,7 @@ class WilsonStencilSoA(_SoALayout):
 
     def self_inv(self, v, parity):
         return cuda_dslash.clover(self.cdiag_inv, self.coff_inv, v,
-                                  self.lattice, parity)
+                                  self.lattice, parity, self.parity_offset)
 
     def hop_intra(self, v):
         return cuda_dslash.hopping(self.links_intra, v, self.lattice)
@@ -163,16 +213,21 @@ class CoarseStencilSoA(_SoALayout):
     even: torch.Tensor           # [V] real
     odd: torch.Tensor
     geom: Geometry
+    mesh: object = None
 
     @classmethod
-    def build(cls, cop: CoarseOperator, geom: Geometry, dtype=None) -> "CoarseStencilSoA":
+    def build(cls, cop: CoarseOperator, geom: Geometry, dtype=None,
+              mesh=None) -> "CoarseStencilSoA":
+        """From the site-major blocks (this rank's slab of them under a
+        mesh, with geom the slab's geometry)."""
         dtype = dtype or cop.A.dtype
         rdtype = torch.empty((), dtype=dtype).real.dtype
         Ainv = torch.linalg.inv(cop.A)
-        even = fast.parity_mask(geom.lattice, EVEN, rdtype, cop.A.device)
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, cop.A.device,
+                               _slab_parity(mesh, geom.lattice))
         return cls(Pk=cop.pack().to(dtype),
                    Pk_inv=Ainv[None].permute(0, 3, 2, 1).contiguous().to(dtype),
-                   even=even, odd=1.0 - even, geom=geom)
+                   even=even, odd=1.0 - even, geom=geom, mesh=mesh)
 
     @property
     def dtype(self):
@@ -194,13 +249,18 @@ class CoarseStencilSoA(_SoALayout):
         return cuda_coarse.coarse_apply(
             Pk, v, self.lattice, terms,
             mask_block=tuple(self.geom.block) if masked else None,
-            parity=parity)
+            parity=parity, parity_offset=self.parity_offset)
+
+    def _hops(self, v, terms):
+        if self.mesh is not None:
+            return shard_ops.coarse_hops(self.mesh, self.Pk, v, self.lattice, terms)
+        return self._apply(self.Pk, v, terms)
 
     def full_op(self, v):
-        return self._apply(self.Pk, v, (0, 9))
+        return self._hops(v, (0, 9))
 
     def hop(self, v):
-        return self._apply(self.Pk, v, (1, 9))
+        return self._hops(v, (1, 9))
 
     def block_op(self, v):
         return self._apply(self.Pk, v, (0, 9), masked=True)

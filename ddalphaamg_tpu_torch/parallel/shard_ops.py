@@ -1,0 +1,45 @@
+"""The communicating operators of a sharded level (the JAX package's
+wilson_sharded / coarse_sharded, ddalphaamg_tpu/parallel/shard_ops.py:
+150-227):
+
+  * fine full_op (and the Galerkin build's face hops): the local K1 / K2,
+    which wraps T and Z inside the slab, plus the half-spinor face
+    corrections of parallel/soa_halo.py;
+  * coarse full_op / hop: K5 on the slab with the t / z faces received from
+    the neighbor ranks (the coarse hopping exchange,
+    src/coarse_oddeven_generic.c:447-583).
+
+Every other stencil operator (block_op, self_op, self_inv, hop_intra) is
+the local kernel with zero communication: Schwarz blocks divide the slab
+(mesh.check_blocks), so each block-crossing coupling at a slab face is
+already masked to zero and the local wrap reads data that is multiplied by
+zero.  This mirrors the reference, whose Schwarz block solves are
+process-local (src/schwarz_generic.c:312-645).
+"""
+
+from __future__ import annotations
+
+from ..operators import cuda_coarse, cuda_dslash
+from .comm import exchange_faces
+from .mesh import active_axes
+from .soa_halo import face_corrections
+
+
+def wilson_full(mesh, links, cdiag, coff, v, lattice):
+    """D v on one slab: K1 plus the face corrections."""
+    out = cuda_dslash.d_plus_clover(links, cdiag, coff, v, lattice)
+    return face_corrections(mesh, links, v, out, lattice)
+
+
+def wilson_hopping(mesh, links, v, lattice):
+    """The hopping term on one slab: K2 plus the face corrections."""
+    out = cuda_dslash.hopping(links, v, lattice)
+    return face_corrections(mesh, links, v, out, lattice)
+
+
+def coarse_hops(mesh, Pk, v, lattice, terms):
+    """Terms [k0, k1) of the coarse stencil on one slab through K5, with
+    the faces of every split axis exchanged first."""
+    halos = {mu: exchange_faces(mesh, v, lattice, mu)
+             for mu in active_axes(mesh, mesh.global_lattice(lattice))}
+    return cuda_coarse.coarse_apply_halo(Pk, v, lattice, halos, terms)

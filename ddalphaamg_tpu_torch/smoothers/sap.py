@@ -11,6 +11,11 @@ reductions.  The multiplicative residual update is the global
 r <- r - D delta with the full operator after each color.  Fields may carry
 a leading batch axis (the initial test-vector smoothing runs all test
 vectors at once).
+
+On a sharded level (a stencil with a mesh) the colors come from global block
+coordinates, as slabs of the global color masks; block solves and their
+reductions stay on the rank, and the residual update goes through the
+sharded full operator.
 """
 
 from __future__ import annotations
@@ -133,8 +138,9 @@ class SchwarzPreconditioner:
         self.odd_even = odd_even
         rdtype = stencil.even.dtype
         self.colors = tuple(
-            torch.as_tensor(m.reshape(-1), dtype=rdtype, device=stencil.device)
-            for m in color_masks(stencil.geom, scheme))
+            stencil.slab(torch.as_tensor(m.reshape(-1), dtype=rdtype,
+                                         device=stencil.device))
+            for m in color_masks(stencil.global_geom, scheme))
 
     def __call__(self, eta, cycles: int | None = None):
         return sap_smooth(self.s, self.colors, eta.to(self.s.dtype),

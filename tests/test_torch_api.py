@@ -96,9 +96,12 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_dslash.d_plus_clover(links, cdiag, coff, phi, lat)
     cuda_dslash.hopping(links, phi, lat)
     cuda_dslash.clover(cdiag, coff, phi, lat, parity=1)
-    cuda_coarse.coarse_apply(torch.randn(9, 4, 4, V, dtype=torch.complex64),
-                             torch.randn(4, V, dtype=torch.complex64), lat)
-    assert kernels.counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    blocks = torch.randn(9, 4, 4, V, dtype=torch.complex64)
+    v = torch.randn(4, V, dtype=torch.complex64)
+    cuda_coarse.coarse_apply(blocks, v, lat)
+    face = torch.randn(4, V // lat[1], dtype=torch.complex64)
+    cuda_coarse.coarse_apply_halo(blocks, v, lat, {1: (face, face)})
+    assert kernels.counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 
 def test_cuda_request_never_runs_on_cpu():

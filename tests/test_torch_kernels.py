@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K4 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K5 against their plain PyTorch versions
 on a card, and a small solve through them.  Every test here needs a CUDA
 device and skips without one.  The file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
@@ -61,6 +61,8 @@ def test_dslash_kernels_match_plain(cuda, dtype):
         (cuda_dslash.clover(cdiag, coff, phi, lat), fast.clover_apply_soa(cdiag, coff, phi)),
         (cuda_dslash.clover(cdiag, coff, phi, lat, ODD),
          fast.clover_apply_soa(cdiag, coff, phi, lat, ODD)),
+        (cuda_dslash.clover(cdiag, coff, phi, lat, ODD, parity_offset=1),
+         fast.clover_apply_soa(cdiag, coff, phi, lat, ODD, parity_offset=1)),
     ]
     for got, want in cases:
         assert _rel(got, want) < TOL[dtype]
@@ -84,6 +86,39 @@ def test_coarse_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_coarse_halo_kernel_matches_plain(cuda, dtype):
+    lat, d, B = (4, 2, 2, 4), 24, 5
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    Pk = _cplx((9, d, d, V), gen, dtype, cuda)
+    v = _cplx((B, d, V), gen, dtype, cuda)
+
+    def faces(mu):
+        return tuple(_cplx((B, d, V // lat[mu]), gen, dtype, cuda) for _ in range(2))
+
+    for axes in [(0,), (1,), (0, 1)]:
+        halos = {mu: faces(mu) for mu in axes}
+        for terms in [(0, 9), (1, 9)]:
+            got = cuda_coarse.coarse_apply_halo(Pk, v, lat, halos, terms)
+            want = coarse.coarse_apply_halo_plain(Pk, v, lat, halos, terms)
+            assert _rel(got, want) < TOL[dtype], (axes, terms)
+
+
+@pytest.mark.gpu
+def test_coarse_parity_offset_matches_plain(cuda):
+    lat, d = (2, 3, 2, 2), 8
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    Pk = _cplx((1, d, d, V), gen, torch.complex64, cuda)
+    v = _cplx((2, d, V), gen, torch.complex64, cuda)
+    for off in (0, 1):
+        got = cuda_coarse.coarse_apply(Pk, v, lat, (0, 1), parity=ODD, parity_offset=off)
+        want = coarse.coarse_apply_plain(Pk, v, lat, (0, 1), parity=ODD, parity_offset=off)
+        assert _rel(got, want) < TOL[torch.complex64], off
+
+
+@pytest.mark.gpu
 def test_small_solve_runs_through_the_kernels(cuda):
     p = config.parse_ini("""configuration: none
 number of levels: 3
@@ -103,4 +138,6 @@ mixed precision: 1
     rhs = config.make_rhs("ones", s.lattice)
     x, info = s.solve(rhs)
     assert info.converged and s.true_residual(x, rhs) < 1e-10
-    assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
+    counts = kernels.counts()
+    # one rank: K5 (the sharded coarse apply) has no part in the solve
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")) and counts["K5"] == 0, counts
