@@ -3,10 +3,11 @@ repository's runs):
 
     python3 chip_smoke.py
 
-Phases, one result line each, in order:
+Phases, one result line each (or a few), in order:
   1. device   the card's name, power limit and compute mode (nvidia-smi),
               torch and CUDA
-  2. build    compile csrc/*.cu for sm_90a (timed)
+  2. build    compile csrc/*.cu for sm_90a, one nvcc per source, all started
+              together (timed)
   3. kernels  every hand-written kernel against its plain PyTorch version on
               the card at the shapes of the rough16 solve (16^4 fine level;
               8^4 and 4^4 coarse levels with d = 56; K5 on rank 0's slab
@@ -15,28 +16,55 @@ Phases, one result line each, in order:
               z faces, faces cut from a random global field), batch 1 and
               28, with the max relative error against 1e-5 (f32) / 1e-13
               (f64) and the kernel and plain times from CUDA events after
-              warm-up
+              warm-up.  K4-bf16 and K5-bf16 run the same cases on the same
+              blocks rounded to bf16 (tolerance 1e-5: f32 sums in another
+              order), K6 the products with the two stored inverses of
+              rough16, [1, 7168, 7168] and [256, 896, 896].  Each line also
+              gives the least time the card could take (bytes once over
+              3.35 TB/s or operations over the peak rate, whichever is
+              larger) and the time of one PyTorch call that computes the
+              same function on inputs laid out for it beforehand (checked
+              against the plain version to the same tolerance):
+              torch.einsum over per-site 12 x 12 hop matrices and stacked
+              neighbour fields for K1 / K2 (the clover a ninth term for
+              K1), over the unpacked 6 x 6 clover blocks for K3, over the
+              stacked neighbour fields for K4 / K5 (the TPU kernel's own
+              input; widened complex64 blocks for the bf16 rows), and
+              torch.matmul on the widened complex64 matrix for K6
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
               solve of a right-hand side of ones, exact relative residual
               recomputed in complex128 from the returned x, < 1e-10 in <= 12
               outer iterations), with the launch count of each kernel in
-              that run (K1-K4 must be > 0)
+              that run (K1-K4 must be > 0); then a second, warm solve of
+              the same right-hand side, timed for phase 7
   5. sharded  the domain-decomposed main path: the same solve on a
               (1, 2, 1, 1) t/z process grid, two ranks spawned on this one
               card with the "gloo" transport (faces and sums cross the host:
               its times are no scaling numbers); every rank must agree, the
               exact relres recomputed by rank 0 from the gathered x must be
               < 1e-10 in <= 12 outer iterations, within 1 of phase 4, and
-              every kernel, K5 included, must have run
+              every kernel of the path, K5 included, must have run
   6. nccl     with two or more cards, the same solve with the "nccl"
               transport on one card per rank ((2, 2, 1, 1) with four cards);
               with one card a line says it was not run
+  7. direct   phase 4 with the JAX package's accelerator options on (bf16
+              coarse blocks, coarsest dense Schur inverse, direct block
+              solves; set on the parsed parameters): setup, the time of
+              each inverse build, the first solve (which builds the
+              inverses) and a second, warm solve of the same right-hand
+              side beside phase 4's warm solve, peak device memory;
+              relres < 1e-10 in <= 12 and <= phase 4 + 2 outer iterations,
+              K4-bf16 and K6 launched, and no coarsest GCR iteration in the
+              solve
+  8. sharded-direct  phase 5 with the three options: K5-bf16 must run, and
+              the iterations are within 1 of phase 7
 
 The second-to-last lines are a JSON summary of the kernels (launches of
-K1-K4 from phase 4, of K5 from phase 5) and the card's nvidia-smi line; the
-last line is {"ok": true, "device": {...}}.  Any failed check exits
-non-zero before that line; so does a machine without CUDA.
+K1-K4 from phase 4, K5 from phase 5, K4-bf16 and K6 from phase 7, K5-bf16
+from phase 8) and the card's nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.  Any failed check exits non-zero before that
+line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -55,6 +83,18 @@ INI = os.path.join(HERE, "bench_assets", "rough16.ini")
 PLAQ = 1.7878261039088
 TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
 BATCHES = (1, 28)
+# published H100 SXM rates (NVIDIA data sheet): memory, and dense
+# non-tensor-core arithmetic in f32 and f64
+MEM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.complex64: 67e12, torch.complex128: 34e12}
+# flops per site and right-hand side: Wilson hop 1320, packed clover (two
+# 6 x 6 complex blocks) 576
+DSLASH_FLOPS = {"K1": 1320 + 576, "K2": 1320, "K3": 576}
+OPTIONS = ("coarse_block_bf16", "coarsest_direct", "smoother_direct")
+PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4"),
+                "sharded": ("K1", "K2", "K3", "K4", "K5"),
+                "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
+                "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6")}
 
 
 def fail(msg):
@@ -62,14 +102,17 @@ def fail(msg):
     sys.exit(1)
 
 
-def rough16_params():
+def rough16_params(options=False):
     """rough16.ini with its configuration file taken from this checkout (the
-    ini names it by an absolute path)."""
+    ini names it by an absolute path), with the three accelerator options
+    on if asked."""
     from ddalphaamg_tpu_torch import config
 
     params = config.parse_ini(INI)
     params.configuration = os.path.join(HERE, "bench_assets",
                                         os.path.basename(params.configuration))
+    for key in OPTIONS:
+        setattr(params, key, bool(options))
     return params
 
 
@@ -91,25 +134,166 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def compare(results, key, label, kernel_fn, plain_fn, dtype):
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=None):
     """One kernel-vs-plain check; keeps the worst error per kernel and the
-    times of the first (batch 1, main-path dtype) case."""
+    numbers of the first (batch 1, main-path dtype) case.  work = (bytes,
+    operations) the function needs on these inputs."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
     rel = abs_err / float(want.abs().max())
     tol = TOL[dtype]
+    if library_fn is not None:    # the library time is only worth its name if it agrees
+        lib_rel = float((library_fn().reshape(want.shape) - want).abs().max() / want.abs().max())
+        if lib_rel > tol:
+            fail(f"{label}: the library call differs from the plain version by {lib_rel:.3e}")
     ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, reps=3)
+    lib_ms = cuda_ms(library_fn, reps=3) if library_fn is not None else None
+    by_bytes, by_ops = work[0] / MEM_BYTES_PER_S, work[1] / PEAK_FLOPS[dtype]
+    bound_ms = 1e3 * max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
     ok = rel <= tol
-    print(f"  {label:44s} rel err {rel:.3e} (tol {tol:.0e}) "
-          f"kernel {ms:9.4f} ms  plain {plain_ms:9.4f} ms  "
-          f"{'ok' if ok else 'FAILED'}", flush=True)
+    lib = f"{lib_ms:9.4f}" if lib_ms is not None else "     none"
+    print(f"  {label:50s} rel err {rel:.3e} (tol {tol:.0e}) kernel {ms:9.4f} ms  "
+          f"plain {plain_ms:9.4f}  library {lib}  bound {bound_ms:8.4f} ({bound_by}, "
+          f"{100 * bound_ms / ms:5.1f} %)  {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
         fail(f"{label}: relative error {rel:.3e} above {tol:.0e}")
     r = results.setdefault(key, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-    r.setdefault("ms", ms)
-    r.setdefault("plain_ms", plain_ms)
+    for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                   ("bound_by", bound_by), ("library_ms", lib_ms)):
+        r.setdefault(k, val)
+
+
+def coarse_pairs(lat, terms, mask, parity):
+    """(term, site) pairs a coarse apply needs: hops that cross a mask block
+    face and sites of the other parity are skipped (global parity of a
+    slab at offset 0); returns (pairs, sites whose field is read)."""
+    import numpy as np
+
+    c = np.indices(lat).reshape(4, -1)
+    live = np.ones(c.shape[1], bool) if parity is None else (c.sum(0) % 2 == parity)
+    pairs = 0
+    for k in range(*terms):
+        keep = live.copy()
+        if k > 0 and mask is not None:
+            mu = (k - 1) % 4
+            r = c[mu] % mask[mu]
+            keep &= (r != mask[mu] - 1) if k < 5 else (r != 0)
+        pairs += int(keep.sum())
+    return pairs, int(live.sum())
+
+
+def coarse_work(blocks, v, lat, terms, mask=None, parity=None, faces=()):
+    """(bytes, operations) of a coarse apply: the blocks of the needed
+    (term, site) pairs, the field at the sites read, the faces, the output."""
+    K, d = blocks.shape[0], blocks.shape[1]
+    V = math.prod(lat)
+    batch = v.numel() // (d * V)
+    pairs, live = coarse_pairs(lat, terms, mask, parity)
+    entry = nbytes(blocks) // (K * d * d * V)
+    return (pairs * d * d * entry + batch * d * 8 * (live + V) + nbytes(*faces),
+            8 * d * d * pairs * batch)
+
+
+def stacked_einsum(blocks, v, lat, terms, mask=None, halos=None):
+    """The library call for K4 / K5: one torch.einsum over the neighbour
+    fields stacked beforehand (the TPU kernel's input, pallas_coarse.py:
+    25-31); returns a function of no arguments."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch.operators import coarse
+
+    ks = range(*terms)
+    fields = []
+    masks = None
+    if mask is not None:
+        fwd, bwd = coarse.intra_block_masks(lat, mask)
+        masks = torch.as_tensor(np.concatenate([fwd, bwd]).reshape(8, -1),
+                                dtype=torch.float32, device=v.device)
+    for k in ks:
+        w = coarse.neighbor(v, k, lat, halos)
+        fields.append(w * masks[k - 1] if masks is not None and k > 0 else w)
+    # stored [x, j, k, i] and [x, j, k, b], so that the einsum's batched
+    # product over x reads both without a copy
+    B = coarse.widen(blocks[terms[0]:terms[1]]).permute(3, 1, 0, 2).contiguous()
+    stack = torch.stack(fields, dim=-1).permute(2, 1, 3, 0).contiguous()
+    B, stack = B.permute(2, 1, 3, 0), stack.permute(3, 2, 1, 0)     # [k, j, i, x], [b, k, j, x]
+    return lambda: torch.einsum("kjix,bkjx->bix", B, stack)
+
+
+def spin_matrices(dtype, device):
+    """[4, 2, 4, 4]: the spin matrix of the forward (0) and backward (1) hop
+    of each direction in the plain K2, read off the plain version itself on
+    a 3^4 lattice with unit links and unit sources at site 0."""
+    from ddalphaamg_tpu_torch.operators import fast
+
+    lat = (3,) * 4
+    links = torch.eye(3, dtype=dtype, device=device)[None, :, :, None].expand(4, 3, 3, 81)
+    phi = torch.zeros((12, 12, 81), dtype=dtype, device=device)
+    phi[torch.arange(12), torch.arange(12), 0] = 1
+    out = fast.dslash_hopping_soa(links.contiguous(), phi, lat).reshape(12, 12, *lat)
+    S = torch.empty((4, 2, 4, 4), dtype=dtype, device=device)
+    for mu in range(4):
+        e = [0] * 4
+        # the source at site 0 is phi(x + mu) at x = -mu, phi(x - mu) at x = +mu
+        for side, step in ((0, -1), (1, 1)):
+            e[mu] = step % 3
+            # out[j, i] = H[i, j]; colour 0 of each spin
+            S[mu, side] = out[:, :, e[0], e[1], e[2], e[3]].T[::3, ::3]
+    return S
+
+
+def dslash_library(links, phi, lat, clover=None):
+    """The library call for K1 (with clover = (cdiag, coff)) and K2: one
+    torch.einsum over per-site 12 x 12 hop matrices (spin matrix (x) link,
+    the backward ones at x - mu) and the neighbour fields stacked
+    beforehand, the clover as a ninth, self term; returns a function of no
+    arguments."""
+    from ddalphaamg_tpu_torch.operators import fast
+
+    S = spin_matrices(phi.dtype, phi.device)
+    u = links.reshape(4, 3, 3, *lat)
+    p = phi.reshape(*phi.shape[:-1], *lat)
+    mats, fields = [], []
+    for mu in range(4):
+        ax = p.dim() - 4 + mu
+        udag = torch.roll(u[mu].conj().transpose(0, 1), 1, 2 + mu)       # U^H(x - mu)
+        for side, w, uu in ((0, torch.roll(p, -1, ax), u[mu]), (1, torch.roll(p, 1, ax), udag)):
+            mats.append(torch.einsum("st,abx->satbx", S[mu, side],
+                                     uu.reshape(3, 3, -1)).reshape(12, 12, -1))
+            fields.append(w.reshape(phi.shape))
+    if clover is not None:
+        dense = fast.unpack_clover(*clover).to(phi.dtype)
+        c12 = torch.zeros((12, 12, dense.shape[-1]), dtype=phi.dtype, device=phi.device)
+        c12[:6, :6], c12[6:, 6:] = dense[0], dense[1]
+        mats.append(c12)
+        fields.append(phi)
+    # stored [x, i, j, k] and [x, j, k, b]: no copy inside the einsum
+    H = torch.stack(mats, dim=-1).permute(2, 0, 1, 3).contiguous().permute(3, 1, 2, 0)
+    stack = torch.stack(fields, dim=-1).permute(2, 1, 3, 0).contiguous().permute(3, 2, 1, 0)
+    return lambda: torch.einsum("kijx,bkjx->bix", H, stack)
+
+
+def clover_library(cdiag, coff, phi, lat, parity=None):
+    """The library call for K3: one torch.einsum over the clover unpacked
+    beforehand into two dense 6 x 6 blocks per site (K3's plain version
+    minus the unpacking), with a parity zero at the other parity's sites."""
+    from ddalphaamg_tpu_torch.operators import fast
+
+    dense = fast.unpack_clover(cdiag, coff).to(phi.dtype)
+    if parity is not None:
+        dense = dense * fast.parity_mask(lat, parity, dense.real.dtype, dense.device)
+    # stored [c, x, i, j] and [c, x, j, b]: no copy inside the einsum
+    dense = dense.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    ph = phi.reshape(phi.shape[0], 2, 6, phi.shape[-1]).permute(1, 3, 2, 0).contiguous()
+    ph = ph.permute(3, 0, 2, 1)
+    return lambda: torch.einsum("cijx,bcjx->bcix", dense, ph)
 
 
 def check_kernels(results):
@@ -132,26 +316,34 @@ def check_kernels(results):
     for dtype in (torch.complex64, torch.complex128):
         s = WilsonStencilSoA.build(op, geom, dtype=dtype)
         tag = "f32" if dtype == torch.complex64 else "f64"
+        V = s.geom.num_sites
         for B in BATCHES:
-            phi = torch.randn((B, 12, s.geom.num_sites), generator=gen,
-                              dtype=dtype, device=dev)
+            phi = torch.randn((B, 12, V), generator=gen, dtype=dtype, device=dev)
             lab = f"{lat[0]}^4 {tag} batch {B}"
             compare(results, "K1", f"K1 full {lab}",
                     lambda: cuda_dslash.d_plus_clover(s.links, s.cdiag, s.coff, phi, lat),
                     lambda: fast.d_plus_clover_soa(s.links, s.cdiag, s.coff, phi, lat),
-                    dtype)
+                    dtype, (nbytes(s.links, s.cdiag, s.coff) + 2 * nbytes(phi),
+                            DSLASH_FLOPS["K1"] * V * B),
+                    dslash_library(s.links, phi, lat, (s.cdiag, s.coff)))
             if dtype != torch.complex64:
                 continue
             compare(results, "K2", f"K2 hop (block links) {lab}",
                     lambda: cuda_dslash.hopping(s.links_intra, phi, lat),
-                    lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat), dtype)
+                    lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat), dtype,
+                    (nbytes(s.links_intra) + 2 * nbytes(phi), DSLASH_FLOPS["K2"] * V * B),
+                    dslash_library(s.links_intra, phi, lat))
             compare(results, "K3", f"K3 clover {lab}",
                     lambda: cuda_dslash.clover(s.cdiag, s.coff, phi, lat),
-                    lambda: fast.clover_apply_soa(s.cdiag, s.coff, phi), dtype)
+                    lambda: fast.clover_apply_soa(s.cdiag, s.coff, phi), dtype,
+                    (nbytes(s.cdiag, s.coff) + 2 * nbytes(phi), DSLASH_FLOPS["K3"] * V * B),
+                    clover_library(s.cdiag, s.coff, phi, lat))
             compare(results, "K3", f"K3 clover inverse odd {lab}",
                     lambda: cuda_dslash.clover(s.cdiag_inv, s.coff_inv, phi, lat, ODD),
                     lambda: fast.clover_apply_soa(s.cdiag_inv, s.coff_inv, phi, lat, ODD),
-                    dtype)
+                    dtype, (nbytes(s.cdiag_inv, s.coff_inv) // 2 + 3 * nbytes(phi) // 2,
+                            DSLASH_FLOPS["K3"] * V * B // 2),
+                    clover_library(s.cdiag_inv, s.coff_inv, phi, lat, ODD))
         del s
     d = 2 * params.depth[0].test_vectors
     cases = [("full K=9", (0, 9), None, None), ("hop K=8", (1, 9), None, None),
@@ -162,21 +354,26 @@ def check_kernels(results):
         clat = (L,) * 4
         V = int(np.prod(clat))
         Pk = torch.randn((9, d, d, V), generator=gen, dtype=torch.complex64, device=dev)
-        for B in BATCHES:
-            v = torch.randn((B, d, V), generator=gen, dtype=torch.complex64, device=dev)
-            for name, terms, mask, parity in cases:
-                compare(results, "K4", f"K4 {name} {L}^4 d={d} batch {B}",
-                        lambda: cuda_coarse.coarse_apply(Pk, v, clat, terms, mask, parity),
-                        lambda: coarse.coarse_apply_plain(Pk, v, clat, terms, mask, parity),
-                        torch.complex64)
-        del Pk
-    check_halo_kernel(results, gen, (lat[0] // 2,) * 4, d)
+        Pk16 = coarse.compress(Pk)
+        for key, blocks in (("K4", Pk), ("K4-bf16", Pk16)):
+            for B in BATCHES:
+                v = torch.randn((B, d, V), generator=gen, dtype=torch.complex64, device=dev)
+                for name, terms, mask, parity in cases:
+                    compare(results, key, f"{key} {name} {L}^4 d={d} batch {B}",
+                            lambda: cuda_coarse.coarse_apply(blocks, v, clat, terms, mask, parity),
+                            lambda: coarse.coarse_apply_plain(blocks, v, clat, terms, mask, parity),
+                            torch.complex64, coarse_work(blocks, v, clat, terms, mask, parity),
+                            None if parity is not None
+                            else stacked_einsum(blocks, v, clat, terms, mask))
+        del Pk, Pk16
+    check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
+    check_dense_kernel(results, gen, d, lat)
 
 
-def check_halo_kernel(results, gen, glat, d):
-    """K5 on rank 0's slab of the depth-1 level, on the (1, 2, 1, 1) mesh
-    (z faces) and the (2, 2, 1, 1) mesh (t and z faces) of the sharded
-    paths, with faces cut from a random global field."""
+def check_halo_kernels(results, gen, glat, d):
+    """K5 and K5-bf16 on rank 0's slab of the depth-1 level, on the
+    (1, 2, 1, 1) mesh (z faces) and the (2, 2, 1, 1) mesh (t and z faces)
+    of the sharded paths, with faces cut from a random global field."""
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse
     from ddalphaamg_tpu_torch.parallel.comm import face
     from ddalphaamg_tpu_torch.parallel.mesh import (SolverMesh, active_axes,
@@ -188,6 +385,7 @@ def check_halo_kernel(results, gen, glat, d):
         loc = local_lattice(mesh, glat)
         Pk = torch.randn((9, d, d, math.prod(loc)), generator=gen,
                          dtype=torch.complex64, device=dev)
+        Pk16 = coarse.compress(Pk)
         for B in BATCHES:
             vg = torch.randn((B, d, math.prod(glat)), generator=gen,
                              dtype=torch.complex64, device=dev)
@@ -198,21 +396,69 @@ def check_halo_kernel(results, gen, glat, d):
                 bwd = shard_field(mesh, coarse.neighbor(vg, 5 + mu, glat), glat)  # v(x - mu)
                 halos[mu] = (face(fwd, loc, mu, loc[mu] - 1).contiguous(),
                              face(bwd, loc, mu, 0).contiguous())
-            for name, terms in (("full K=9", (0, 9)), ("hop K=8", (1, 9))):
-                compare(results, "K5", f"K5 {name} mesh {dims} slab {loc} d={d} batch {B}",
-                        lambda: cuda_coarse.coarse_apply_halo(Pk, v, loc, halos, terms),
-                        lambda: coarse.coarse_apply_halo_plain(Pk, v, loc, halos, terms),
-                        torch.complex64)
-        del Pk
+            faces = [f for pair in halos.values() for f in pair]
+            for key, blocks in (("K5", Pk), ("K5-bf16", Pk16)):
+                for name, terms in (("full K=9", (0, 9)), ("hop K=8", (1, 9))):
+                    compare(results, key, f"{key} {name} mesh {dims} slab {loc} d={d} batch {B}",
+                            lambda: cuda_coarse.coarse_apply_halo(blocks, v, loc, halos, terms),
+                            lambda: coarse.coarse_apply_halo_plain(blocks, v, loc, halos, terms),
+                            torch.complex64, coarse_work(blocks, v, loc, terms, faces=faces),
+                            stacked_einsum(blocks, v, loc, terms, halos=halos))
+        del Pk, Pk16
+
+
+def check_dense_kernel(results, gen, d, lat):
+    """K6 at the two products of rough16 with stored inverses: the coarsest
+    level's Schur inverse (n / 2 = d * 4^4 / 2 = 7168) and the depth-1
+    block inverses (8^4 / 2^4 = 256 blocks of 2^4 * d = 896), on random
+    matrices rounded to bf16."""
+    from ddalphaamg_tpu_torch.operators import coarse, cuda_dense
+
+    dev = torch.device("cuda")
+    coarsest = math.prod(e // 4 for e in lat)         # 4^4 sites
+    blocks = math.prod(e // 4 for e in lat)           # 2^4 blocks of the 8^4 level
+    for nb, m in ((1, d * coarsest // 2), (blocks, 16 * d)):
+        A = coarse.compress(torch.randn((nb, m, m), generator=gen, dtype=torch.complex64,
+                                        device=dev))
+        x = torch.randn((nb, m), generator=gen, dtype=torch.complex64, device=dev)
+        wide = coarse.widen(A)
+        compare(results, "K6", f"K6 bf16 matvec [{nb}, {m}, {m}] batch 1",
+                lambda: cuda_dense.matvec(A, x), lambda: cuda_dense.matvec_plain(A, x),
+                torch.complex64, (nbytes(A) + 2 * nbytes(x), 8 * nb * m * m),
+                lambda: torch.matmul(wide, x.unsqueeze(-1)))
+        del A, wide
+
+
+def exact_relres(solver, x, rhs):
+    """||rhs - D x|| / ||rhs|| through the logical complex128 operator."""
+    from ddalphaamg_tpu_torch.operators import wilson
+
+    xs = torch.as_tensor(x, device=solver.device)
+    b = torch.as_tensor(rhs, device=solver.device)
+    r = b - wilson.d_plus_clover(solver.op, xs)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+
+def launches_since(before):
+    """The launches of each kernel since the counts `before`, as text."""
+    from ddalphaamg_tpu_torch import kernels
+
+    return ", ".join(f"{k} {n - before[k]}" for k, n in kernels.counts().items())
+
+
+def check_counts(name, counts):
+    missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+    if missing:
+        fail(f"{name}: the path never launched {missing}")
 
 
 def main_path():
     import numpy as np
 
     from ddalphaamg_tpu_torch import api, config, kernels
-    from ddalphaamg_tpu_torch.operators import wilson
 
     params = rough16_params()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
     solver = api.Solver(params, device="cuda")
@@ -222,42 +468,92 @@ def main_path():
         fail(f"plaquette {plaq:.13f} != {PLAQ}")
     status = solver.setup()
     phase("solve", t0, f"setup {status.setup_time:.3f} s")
+    at_setup = kernels.counts()
     rhs = config.make_rhs("ones", solver.lattice)
     x, info = solver.solve(rhs)
     counts = kernels.counts()
-    # exact residual from the returned x through the logical operator
-    xs = torch.as_tensor(x, device="cuda")
-    b = torch.as_tensor(rhs, device="cuda")
-    r = b - wilson.d_plus_clover(solver.op, xs)
-    exact = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+    exact = exact_relres(solver, x, rhs)
     finite = bool(np.isfinite(x).all()) and x.shape == (*solver.lattice, 4, 3)
     phase("solve", t0, f"solve {info.solve_time:.3f} s, {info.iterations} outer "
           f"iterations, exact relres {exact:.6e} (solver {info.relres:.6e}), "
           f"coarse average {info.coarse_average:.2f}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase("solve", t0, "launches " + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    phase("solve", t0, "of which in the solve " + launches_since(at_setup))
     if not finite:
         fail("solution is not a finite field of the lattice's shape")
     if not (info.converged and exact < 1e-10 and info.iterations <= 12):
         fail(f"solve did not meet relres < 1e-10 in <= 12 iterations "
              f"(iterations {info.iterations}, exact relres {exact:.3e})")
-    missing = [k for k, n in counts.items() if n == 0 and k != "K5"]
-    if missing:
-        fail(f"the main path never launched {missing}")
+    check_counts("solve", counts)
+    _, warm = solver.solve(rhs)      # the warm solve phase 7 is compared with
+    phase("solve", t0, f"warm solve {warm.solve_time:.3f} s, {warm.iterations} outer "
+          f"iterations")
+    if warm.iterations != info.iterations:
+        fail(f"the warm solve took {warm.iterations} iterations, the first {info.iterations}")
+    return counts, info.iterations, warm.solve_time
+
+
+def direct_path(single_iterations, single_warm):
+    """The single-rank solve with the three accelerator options on."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import api, config, kernels
+
+    name = "direct"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    solver = api.Solver(rough16_params(options=True), device="cuda")
+    solver.read_conf()
+    status = solver.setup()
+    phase(name, t0, f"options {', '.join(OPTIONS)} on; setup {status.setup_time:.3f} s")
+    rhs = config.make_rhs("ones", solver.lattice)
+    x, info = solver.solve(rhs)
+    counts = kernels.counts()
+    for what, sec in solver.mg.build_times.items():
+        phase(name, t0, f"{what}: built in {sec:.3f} s inside the first solve")
+    exact = exact_relres(solver, x, rhs)
+    before_warm = kernels.counts()
+    x2, info2 = solver.solve(rhs)
+    warm = launches_since(before_warm)
+    exact2 = exact_relres(solver, x2, rhs)
+    phase(name, t0, f"first solve {info.solve_time:.3f} s (with the builds), warm solve "
+          f"{info2.solve_time:.3f} s (options off: {single_warm:.3f} s); "
+          f"{info.iterations} / {info2.iterations} outer iterations "
+          f"(options off: {single_iterations}), exact relres {exact:.6e} / {exact2:.6e}, "
+          f"coarse average {info.coarse_average:.2f}, coarse matvec average "
+          f"{info.coarse_matvec_average:.2f}, coarsest inverse applies "
+          f"{info.coarsest_inverse_applies:.0f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase(name, t0, "launches (setup and first solve) "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    phase(name, t0, "launches in the warm solve " + warm)
+    finite = all(bool(np.isfinite(a).all()) and a.shape == (*solver.lattice, 4, 3)
+                 for a in (x, x2))
+    if not finite:
+        fail(f"{name}: a solution is not a finite field of the lattice's shape")
+    limit = min(12, single_iterations + 2)
+    for i, e, lab in ((info, exact, "first"), (info2, exact2, "warm")):
+        if not (i.converged and e < 1e-10 and i.iterations <= limit):
+            fail(f"{name}: {lab} solve did not meet relres < 1e-10 in <= {limit} "
+                 f"iterations (iterations {i.iterations}, exact relres {e:.3e})")
+        if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
+            fail(f"{name}: {lab} solve ran the coarsest GCR")
+    check_counts(name, counts)
     return counts, info.iterations
 
 
-def sharded_rank(mesh, device):
+def sharded_rank(mesh, device, options=False):
     """One rank of the sharded rough16 solve (run by parallel/launch.run_ranks
     in a spawned process)."""
     import numpy as np
 
     from ddalphaamg_tpu_torch import api, config, kernels
-    from ddalphaamg_tpu_torch.operators import wilson
 
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
-    solver = api.Solver(rough16_params(), device=device, mesh=mesh)
+    solver = api.Solver(rough16_params(options), device=device, mesh=mesh)
     plaq, _ = solver.read_conf()
     status = solver.setup()
     rhs = config.make_rhs("ones", solver.lattice)
@@ -265,32 +561,34 @@ def sharded_rank(mesh, device):
     out = dict(rank=mesh.rank, plaq=plaq, setup=status.setup_time,
                solve=info.solve_time, iterations=info.iterations,
                relres=info.relres, converged=info.converged,
-               coarse_average=info.coarse_average, counts=kernels.counts(),
+               coarse_average=info.coarse_average,
+               coarse_matvec_average=info.coarse_matvec_average,
+               counts=kernels.counts(), build_times=solver.mg.build_times,
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                x_sum=complex(x.sum()))
     if mesh.rank == 0:    # exact residual from the gathered x, logical operator
-        xs = torch.as_tensor(x, device=device)
-        b = torch.as_tensor(rhs, device=device)
-        r = b - wilson.d_plus_clover(solver.op, xs)
-        out["exact"] = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+        out["exact"] = exact_relres(solver, x, rhs)
         out["finite"] = bool(np.isfinite(x).all()) and x.shape == (*solver.lattice, 4, 3)
     return out
 
 
-def sharded_path(name, dims, transport, devices, single_iterations):
+def sharded_path(name, dims, transport, devices, single_iterations, options=False):
     """The sharded solve on spawned ranks; returns rank 0's launch counts."""
     from ddalphaamg_tpu_torch.parallel import launch
 
     t0 = time.perf_counter()
-    res = launch.run_ranks(sharded_rank, dims, transport, devices)
+    res = launch.run_ranks(sharded_rank, dims, transport, devices, options)
     r0 = res[0]
     phase(name, t0, f"mesh {dims}, {len(res)} ranks, {transport} on "
           f"{', '.join(devices)}: plaquette {r0['plaq']:.13f}, setup "
           f"{r0['setup']:.3f} s, solve {r0['solve']:.3f} s, "
           f"{r0['iterations']} outer iterations (single rank {single_iterations}), "
           f"exact relres {r0['exact']:.6e} (solver {r0['relres']:.6e}), coarse average "
-          f"{r0['coarse_average']:.2f}, peak device memory per rank "
+          f"{r0['coarse_average']:.2f}, coarse matvec average "
+          f"{r0['coarse_matvec_average']:.2f}, peak device memory per rank "
           f"{max(r['peak_gib'] for r in res):.2f} GiB")
+    for what, sec in r0["build_times"].items():
+        phase(name, t0, f"rank 0 {what}: built in {sec:.3f} s inside the solve")
     phase(name, t0, "rank 0 launches " + ", ".join(
         f"{k} {n}" for k, n in r0["counts"].items()))
     keys = ("iterations", "relres", "coarse_average", "x_sum")
@@ -305,9 +603,9 @@ def sharded_path(name, dims, transport, devices, single_iterations):
         fail(f"{name}: solve did not meet relres < 1e-10 in <= 12 iterations within "
              f"1 of the single-rank run (iterations {r0['iterations']}, exact relres "
              f"{r0['exact']:.3e})")
-    missing = [k for k, n in r0["counts"].items() if n == 0]
-    if missing:
-        fail(f"{name}: the sharded path never launched {missing}")
+    if options and r0["coarse_matvec_average"] != 0:
+        fail(f"{name}: the solve ran the coarsest GCR")
+    check_counts("sharded-direct" if options else "sharded", r0["counts"])
     return r0["counts"]
 
 
@@ -338,7 +636,7 @@ def main():
     check_kernels(results)
     phase("kernels", t0, "all kernels agree with their plain versions")
 
-    counts, iterations = main_path()
+    counts, iterations, warm = main_path()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)
     counts["K5"] = sharded["K5"]
     n = torch.cuda.device_count()
@@ -349,6 +647,11 @@ def main():
     else:
         print(f"[nccl] not run: {n} card (the nccl transport needs a card per rank)",
               flush=True)
+    direct, direct_iterations = direct_path(iterations, warm)
+    counts["K4-bf16"], counts["K6"] = direct["K4-bf16"], direct["K6"]
+    sharded_direct = sharded_path("sharded-direct", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2,
+                                  direct_iterations, options=True)
+    counts["K5-bf16"] = sharded_direct["K5-bf16"]
     summary = [dict(name=k.name, route=k.route, source=k.source,
                     replaces=k.replaces, launches=counts[key], **results[key])
                for key, k in kernels.KERNELS.items()]

@@ -13,6 +13,15 @@ solve) or 1 and 2 (complex64 inner solve).  The outer loop refreshes the
 true residual in complex128 once per restart and runs each restart's inner
 solve as flexible GCR preconditioned by the multigrid cycle.
 
+The JAX package's accelerator options are ported and off unless the ini
+turns them on (`coarse block bf16: 1`, `coarsest direct: 1`,
+`smoother direct: 1`; mg/hierarchy.py describes them): bf16 coarse blocks
+(complex64 inner solve only), a dense inverse on the coarsest level and
+direct Schwarz block solves on the coarse levels.  An option that is on
+builds its inverse at any size.  The JAX package turns all three on by
+default on its accelerator (its api.py:228-238); the CUDA defaults wait
+for a GPU benchmark.
+
 With a mesh (parallel/mesh.SolverMesh, one process per rank) the solve is
 domain-decomposed over a t/z process grid: every rank computes the
 plaquette and the complex128 clover on the global field and keeps its slab,
@@ -58,7 +67,13 @@ class SolveInfo:
     relres: float
     converged: bool
     solve_time: float
-    coarse_average: float = 0.0      # coarsest GCR iterations per outer iteration
+    # coarsest iterations per outer iteration (one per dense-inverse apply
+    # with coarsest direct, as in the JAX package)
+    coarse_average: float = 0.0
+    # coarsest GCR operator applications per outer iteration, and dense
+    # inverse applies in the solve (the JAX package's SolveInfo fields)
+    coarse_matvec_average: float = 0.0
+    coarsest_inverse_applies: float = 0.0
     resvec: list = dataclasses.field(default_factory=list)
 
 
@@ -129,10 +144,6 @@ class Solver:
 
     def _mg_config(self) -> MGConfig:
         p = self.p
-        for key in ("coarse_block_bf16", "coarsest_direct", "smoother_direct"):
-            if getattr(p, key):
-                raise NotImplementedError(f"{key.replace('_', ' ')} is not "
-                                          "ported yet (ROADMAP A, still to port 2-3)")
         return MGConfig(
             levels=[LevelConfig(
                 lattice=tuple(d.global_lattice), block=tuple(d.block_lattice),
@@ -145,7 +156,10 @@ class Solver:
             coarse_tol=p.coarse_tol, coarse_iter=p.coarse_iter,
             coarse_restart=p.coarse_restart, odd_even=p.odd_even,
             scheme=_SCHEMES[p.method], dtype=self._inner_dtype,
-            seed=self._seed(), mesh=self.mesh)
+            seed=self._seed(), mesh=self.mesh,
+            coarse_block_bf16=bool(p.coarse_block_bf16),
+            coarsest_direct=bool(p.coarsest_direct),
+            smoother_direct=bool(p.smoother_direct))
 
     def _seed(self) -> int:
         if not self.p.randomize_test_vectors:
@@ -218,7 +232,8 @@ class Solver:
         tol = p.tol if tol is None else tol
         if rhs is None:
             rhs = make_rhs(p.right_hand_side, self.lattice, seed=p.seed)
-        self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0)
+        self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0,
+                             coarsest_inverse_applies=0.0)
         t0 = time.perf_counter()
         b = self._scatter(rhs)
         x, iters, relres, resvec = self._solve_mp(b, tol)
@@ -227,9 +242,12 @@ class Solver:
         self._sync()
         dt = self._wall(time.perf_counter() - t0)
         x_log = fast.spinor_from_soa(x, self.lattice).cpu().numpy()
+        st = self.mg.stats
         info = SolveInfo(iterations=iters, relres=relres, converged=relres < tol,
                          solve_time=dt,
-                         coarse_average=self.mg.stats["coarse_iterations"] / max(iters, 1),
+                         coarse_average=st["coarse_iterations"] / max(iters, 1),
+                         coarse_matvec_average=st["coarse_matvecs"] / max(iters, 1),
+                         coarsest_inverse_applies=st["coarsest_inverse_applies"],
                          resvec=resvec)
         return x_log, info
 

@@ -82,12 +82,17 @@ def _run(params, args, mesh, device) -> int:
     say(f"Desired average plaquette: {header:.13f} in [0,3]")
     say(f"Computed average plaquette: {plaq:.13f} in [0,3]")
 
+    opts = [k.replace("_", " ") for k in ("coarse_block_bf16", "coarsest_direct",
+                                           "smoother_direct") if getattr(params, k)]
+    say(f"options on: {', '.join(opts) if opts else 'none'}")
     t0 = time.perf_counter()
     solver.setup()
     say(f"setup time: {time.perf_counter() - t0:.3f} seconds")
 
     rhs = config.make_rhs(params.right_hand_side, solver.lattice, seed=params.seed)
     x, info = solver.solve(rhs, tol=args.tol)
+    for name, sec in solver.mg.build_times.items():   # built lazily in the solve
+        say(f"{name}: built in {sec:.3f} seconds (inside the solve time)")
     exact = solver.true_residual(x, rhs)
     say("+----------------------------------------------------------+")
     say(f"|       FGMRES iterations: {info.iterations:<6d} coarse average: {info.coarse_average:<6.2f}   |")

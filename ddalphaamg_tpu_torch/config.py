@@ -58,10 +58,9 @@ class SolverParams:
     method: int = 2                 # -1 CGN, 0 GMRES, 1-3 FGMRES+Schwarz, 4 FGMRES+OE-GMRES, 5 +BiCGstab
     interpolation: int = 2          # 0 off, 2 bootstrap F-cycle
     mixed_precision: int = 1
-    # The next three keys are parsed for ini compatibility with the JAX
-    # package; the port runs the reference semantics (f32 coarse blocks, a
-    # GCR coarsest solve, MinRes block solves) and rejects True for them
-    # until the options are ported (ROADMAP A, still to port 2-3).
+    # The JAX package's accelerator options (mg/hierarchy.MGConfig); None
+    # (not in the ini) is off in the port: the reference semantics of f32
+    # coarse blocks, a GCR coarsest solve and MinRes block solves.
     coarse_block_bf16: Optional[bool] = None
     coarsest_direct: Optional[bool] = None
     smoother_direct: Optional[bool] = None

@@ -58,14 +58,15 @@ def interpolation(P, device="cpu", dtype=torch.complex128, mesh=None) -> torch.T
     return out if mesh is None else shard_interpolation(mesh, out, a.shape[:4])
 
 
-def packed_blocks_tz(Pk, lattice, device="cpu", dtype=torch.complex64,
-                     mesh=None) -> torch.Tensor:
-    """The JAX package's "tz" packed coarse blocks [K, T, Z, d*d, Y*X] (rows
-    j-major, pallas_coarse.pack_blocks) -> the port's [K, d (j), d (i), V],
-    or this rank's slab [K, d, d, V_l]."""
+def packed_blocks(Pk, lattice, device="cpu", dtype=torch.complex64,
+                  mesh=None) -> torch.Tensor:
+    """The JAX package's packed coarse blocks, layout "t" [K, T, d*d, Z*Y*X]
+    or "tz" [K, T, Z, d*d, Y*X] (rows j-major, pallas_coarse.pack_blocks)
+    -> the port's [K, d (j), d (i), V], or this rank's slab [K, d, d, V_l]."""
     a = np.asarray(Pk)
-    K, t, z, dd, m = a.shape
+    K, t, dd, rest = a.shape[0], a.shape[1], a.shape[-2], a.shape[-1]
     d = int(round(dd ** 0.5))
-    a = a.reshape(K, t, z, d, d, m).transpose(0, 3, 4, 1, 2, 5).reshape(K, d, d, -1)
+    a = a.reshape(K, -1, d, d, rest)              # [K, T or T*Z, j, i, M]
+    a = a.transpose(0, 2, 3, 1, 4).reshape(K, d, d, -1)
     out = _t(a, dtype, device).contiguous()
     return out if mesh is None else shard_field(mesh, out, lattice)

@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface and loaded with ctypes.  The build happens at first use,
-never at import, into build/torch_kernels/ under the repository root (listed
-in .gitignore), keyed by a hash of the sources.  A failed build raises.
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes.  The build happens at first use, never at
+import, into build/torch_kernels/ under the repository root (listed in
+.gitignore), keyed by a hash of the sources.  A failed build raises.
 
 Every kernel has a `Kernel` record whose `launches` counter its wrapper
 increments exactly where it launches the CUDA kernel; a run can reset the
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 
 @dataclasses.dataclass
@@ -51,6 +52,17 @@ KERNELS = {
                  "ddalphaamg_tpu/operators/pallas_coarse.py:200"),
     "K5": Kernel("K5 coarse halo", "cuda", "ddalphaamg_tpu_torch/csrc/coarse.cu",
                  "ddalphaamg_tpu/operators/pallas_coarse.py:223"),
+    "K4-bf16": Kernel("K4-bf16 coarse, bf16 blocks", "cuda",
+                      "ddalphaamg_tpu_torch/csrc/coarse.cu",
+                      "ddalphaamg_tpu/operators/pallas_coarse.py:200 (bf16 blocks "
+                      "widened at pallas_coarse.py:114-116)"),
+    "K5-bf16": Kernel("K5-bf16 coarse halo, bf16 blocks", "cuda",
+                      "ddalphaamg_tpu_torch/csrc/coarse.cu",
+                      "ddalphaamg_tpu/operators/pallas_coarse.py:223 (bf16 blocks "
+                      "widened at pallas_coarse.py:140-142)"),
+    "K6": Kernel("K6 bf16 batched matvec", "cuda", "ddalphaamg_tpu_torch/csrc/dense.cu",
+                 "ddalphaamg_tpu/operators/stencil.py:710, :727 and "
+                 "ddalphaamg_tpu/smoothers/sap.py:193 (XLA einsums, no pallas_call)"),
 }
 
 
@@ -74,6 +86,9 @@ _SIGNATURES = {
     "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 14 + [_P],
     "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 8 + [_P],
     "ddaamg_coarse_halo_f64": [_P] * 7 + [_I] * 8 + [_P],
+    "ddaamg_coarse_bf16": [_P, _P, _P] + [_I] * 14 + [_P],
+    "ddaamg_coarse_halo_bf16": [_P] * 7 + [_I] * 8 + [_P],
+    "ddaamg_dense_bf16": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -92,6 +107,18 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raises with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n"
+                               f"{out}\n{err}")
+
+
 def build() -> Path:
     """Compile the library if no build of the current sources exists;
     returns its path."""
@@ -105,16 +132,15 @@ def build() -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(srcs, objs)])
+        so = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", so, *objs]])
+        os.replace(so, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
 

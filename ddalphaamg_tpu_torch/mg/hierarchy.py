@@ -28,21 +28,42 @@ the restriction, every rank solves the same problem on the same bits, and
 each keeps its slab of the solution for the interpolation.  Initial test
 vectors are drawn on the global lattice and then sliced, so a sharded run
 builds the hierarchy a single-rank run builds.
+
+Three options of the JAX package's accelerator configuration (its
+mg/hierarchy.py:291-308), each off by default:
+  * coarse_block_bf16: the cycles (the bootstrap's setup cycles included)
+    see a bf16-compressed copy of every coarse stencil (_cycle_view),
+    applied by K4-bf16 / K5-bf16; the Galerkin builds and the inverse
+    builds read the full-precision stencil;
+  * coarsest_direct: one matvec with a dense inverse of the coarsest
+    operator (its even-site Schur complement where odd-even applies)
+    replaces the coarsest GCR;
+  * smoother_direct: the SAP of every coarse level with a smoother solves
+    its blocks with precomputed block inverses instead of MinRes.
+The inverses are built lazily at the first cycle after the setup (never
+during bootstrap_setup), stored in bf16 with coarse_block_bf16, dropped by
+re_setup, and timed (Multigrid.build_times).  On a mesh the replicated
+coarsest level builds its inverse redundantly on every rank, and a sharded
+level the inverses of the blocks of its slab.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
-from ..operators.stencil import ODD, CoarseStencilSoA, WilsonStencilSoA
+from ..operators.stencil import (ODD, CoarseStencilSoA, WilsonStencilSoA, dense_inverse,
+                                 dense_schur_inverse, dense_schur_solve, dense_solve, schur,
+                                 schur_even_indices)
 from ..operators.wilson import WilsonOperator
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
-from ..smoothers.sap import SchwarzPreconditioner, sap_smooth, sap_smooth_from
+from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
+                             sap_smooth_from)
 from ..solvers.device_gmres import device_gcr
 from .galerkin import build_coarse_operator, gather
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
@@ -82,6 +103,11 @@ class MGConfig:
     # an intermediate level whose slab would hold fewer sites is replicated
     # instead of sharded (the JAX package's default, mg/hierarchy.py:315)
     min_local_sites: int = 256
+    # the accelerator options of the module note (complex64 dtype only for
+    # coarse_block_bf16: K4-bf16 / K5-bf16 take complex64 fields)
+    coarse_block_bf16: bool = False
+    coarsest_direct: bool = False
+    smoother_direct: bool = False
 
     @property
     def num_levels(self):
@@ -99,6 +125,10 @@ class MGLevel:
     P: Optional[torch.Tensor] = None
     test_vectors: Optional[torch.Tensor] = None  # [N, dof, V]
     next: Optional["MGLevel"] = None
+    cycle_stencil: Optional[CoarseStencilSoA] = None  # bf16 view (coarse_block_bf16)
+    # coarsest_direct: the inverse [1, n, n], or (Schur inverse, even indices)
+    dense_inv: Optional[object] = None
+    block_inv: Optional[torch.Tensor] = None   # [nblocks, m, m] (smoother_direct)
 
     @property
     def is_coarsest(self):
@@ -137,8 +167,16 @@ class Multigrid:
     slab of the operator (parallel/mesh.shard_operator)."""
 
     def __init__(self, op: WilsonOperator, cfg: MGConfig):
+        if cfg.coarse_block_bf16 and cfg.dtype != torch.complex64:
+            raise ValueError("coarse block bf16 needs complex64 coarse levels (mixed "
+                             "precision 1 or 2): K4-bf16 / K5-bf16 take complex64 fields")
         self.cfg = cfg
-        self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0}
+        # [coarsest GCR iterations (one per dense apply with coarsest_direct),
+        #  coarsest operator applications of the GCR, dense-inverse applies]
+        self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0,
+                      "coarsest_inverse_applies": 0.0}
+        self.build_times: dict[str, float] = {}     # seconds of each inverse build
+        self._defer_dense = False
         self.fine = self._build(op)
 
     # ------------------------------------------------------------------
@@ -243,6 +281,8 @@ class Multigrid:
             lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom, nxt.stencil.mesh)
             if nxt.smoother is not None:
                 nxt.smoother.replace_stencil(nxt.stencil)
+            # stale against the rebuilt stencil; rebuilt at first use
+            nxt.cycle_stencil = nxt.dense_inv = nxt.block_inv = None
             lvl = nxt
 
     def set_test_vectors(self, tvs, depth: int = 0):
@@ -262,18 +302,23 @@ class Multigrid:
     # ------------------------------------------------------------------
 
     def _coarsest_solve(self, level: MGLevel, b):
-        """Odd-even Schur GCR on the coarsest level
-        (coarse_solve_odd_even_PRECISION); returns (x, counters) with
-        counters = [GCR iterations, operator applications]."""
+        """The coarsest solve: one apply of the dense inverse
+        (coarsest_direct), else odd-even Schur GCR
+        (coarse_solve_odd_even_PRECISION).  Returns (x, counters) with
+        counters = [iterations, GCR operator applications, dense applies]
+        as in the JAX package (hierarchy.py:659-699): a dense apply counts
+        as one iteration and as no GCR application."""
         cfg = self.cfg
-        s = level.stencil
-        if cfg.odd_even and all(e % 2 == 0 for e in level.geom.lattice):
-            def schur(v):
-                ve = s.even * v
-                return s.even * (s.self_op(ve) - s.hop(s.self_inv(s.hop(ve), ODD)))
-
+        s = self._cycle_view(level)
+        if level.dense_inv is not None:
+            if isinstance(level.dense_inv, tuple):
+                x = dense_schur_solve(s, *level.dense_inv, b)
+            else:
+                x = dense_solve(level.dense_inv, b)
+            return x, np.array([1.0, 0.0, 1.0])
+        if self._odd_even(level):
             b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
-            x_e, iters, _, _ = device_gcr(schur, b_e, m=cfg.coarse_iter,
+            x_e, iters, _, _ = device_gcr(lambda v: schur(s, v), b_e, m=cfg.coarse_iter,
                                           tol=cfg.coarse_tol,
                                           n_restarts=cfg.coarse_restart,
                                           allsum=s.allsum)
@@ -284,7 +329,59 @@ class Multigrid:
                                         tol=cfg.coarse_tol,
                                         n_restarts=cfg.coarse_restart,
                                         allsum=s.allsum)
-        return x, np.array([iters, iters + cfg.coarse_restart], dtype=np.float64)
+        return x, np.array([iters, iters + cfg.coarse_restart, 0.0], dtype=np.float64)
+
+    def _odd_even(self, level: MGLevel) -> bool:
+        """Whether the coarsest level is solved through its Schur complement."""
+        return self.cfg.odd_even and all(e % 2 == 0 for e in level.geom.lattice)
+
+    def _cycle_view(self, level: MGLevel):
+        """The stencil the cycles apply at this level: the level's stencil,
+        or with coarse_block_bf16 (depth > 0) its bf16 copy, made at first
+        use after each re_setup."""
+        if not self.cfg.coarse_block_bf16 or level.depth == 0:
+            return level.stencil
+        if level.cycle_stencil is None:
+            level.cycle_stencil = level.stencil.compress()
+        return level.cycle_stencil
+
+    def _timed(self, name: str, fn):
+        """fn() timed on the host clock around a device synchronization."""
+        sync = (torch.cuda.synchronize if self.fine.stencil.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        self.build_times[name] = time.perf_counter() - t0
+        return out
+
+    def _ensure_inverses(self):
+        """Build the missing inverses the options ask for (never during
+        bootstrap_setup): the coarsest level's dense inverse from its
+        full-precision stencil (the Schur-complement inverse where odd-even
+        applies) and the block inverses of every coarse level with a
+        smoother, each stored in bf16 with coarse_block_bf16."""
+        cfg = self.cfg
+        if self._defer_dense:
+            return
+        bf16 = cfg.coarse_block_bf16
+        for lvl in self._levels()[1:]:
+            if cfg.coarsest_direct and lvl.is_coarsest and lvl.dense_inv is None:
+                s = lvl.stencil
+                if self._odd_even(lvl):
+                    idx = schur_even_indices(s)
+                    lvl.dense_inv = (self._timed(
+                        f"coarsest Schur inverse depth {lvl.depth}",
+                        lambda: dense_schur_inverse(s, idx, bf16=bf16)), idx)
+                else:
+                    lvl.dense_inv = self._timed(
+                        f"coarsest dense inverse depth {lvl.depth}",
+                        lambda: dense_inverse(s, bf16=bf16))
+            if cfg.smoother_direct and lvl.smoother is not None and lvl.block_inv is None:
+                lvl.block_inv = self._timed(
+                    f"block inverses depth {lvl.depth}",
+                    lambda: build_block_inverse(lvl.stencil, bf16=bf16))
 
     def _restrict(self, level: MGLevel, r):
         """P^H r, gathered whole onto every rank for a replicated next level."""
@@ -306,8 +403,8 @@ class Multigrid:
         cfg = self.cfg
         levels = self._levels()
         level, nxt = levels[depth], levels[depth + 1]
-        s = level.stencil
-        counters = np.zeros(2)
+        s = self._cycle_view(level)
+        counters = np.zeros(3)
         x = None
         for _ in range(level.cfg.n_cy):
             r = eta if x is None else eta - s.full_op(x)
@@ -318,11 +415,12 @@ class Multigrid:
                 def kprec(v, _d=depth + 1):
                     return self._cycle(_d, v, kcycle_tol)
 
+                ns = self._cycle_view(nxt)
                 x_c, _, _, it = device_gcr(
-                    nxt.stencil.full_op, b_c, m=cfg.kcycle_length,
+                    ns.full_op, b_c, m=cfg.kcycle_length,
                     tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec,
-                    allsum=nxt.stencil.allsum)
-                it = np.zeros(2) if it is None else it
+                    allsum=ns.allsum)
+                it = np.zeros(3) if it is None else it
             else:
                 x_c, it = self._cycle(depth + 1, b_c, kcycle_tol,
                                       collect=collect)
@@ -334,7 +432,8 @@ class Multigrid:
             x = sap_smooth_from(s, level.smoother.colors, eta, x,
                                 cycles=level.cfg.post_smooth_iter,
                                 block_iter=level.cfg.block_iter,
-                                odd_even=(depth == 0 and cfg.odd_even))
+                                odd_even=(depth == 0 and cfg.odd_even),
+                                block_inv=level.block_inv)
         return x, counters
 
     def _kcycle_tol(self, depth: int, tol: float) -> float:
@@ -344,6 +443,7 @@ class Multigrid:
 
     def __call__(self, eta):
         """Depth-0 preconditioner application M(eta)."""
+        self._ensure_inverses()
         s = self.fine.stencil
         x, counters = self._cycle(0, eta.to(s.dtype),
                                   self._kcycle_tol(0, self.cfg.kcycle_tol))
@@ -351,14 +451,16 @@ class Multigrid:
         return x
 
     def _count(self, counters):
-        self.stats["coarse_iterations"] += float(counters[0])
-        self.stats["coarse_matvecs"] += float(counters[1])
+        for key, c in zip(("coarse_iterations", "coarse_matvecs",
+                           "coarsest_inverse_applies"), counters):
+            self.stats[key] += float(c)
 
     def inner_restart(self, r, rel_tol: float, m: int):
         """One inner restart of the mixed-precision outer loop: m iterations
         of flexible GCR over the fine operator, preconditioned by the
         multigrid cycle, stopped once the residual falls below rel_tol.
         Returns (z, iterations)."""
+        self._ensure_inverses()
         s = self.fine.stencil
         ktol = float(self.cfg.kcycle_tol)
 
@@ -382,7 +484,13 @@ class Multigrid:
         it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
         if self.cfg.num_levels < 2 or it <= 0:
             return
-        self._inv_iter_fcycle(self.fine, it)
+        # setup cycles run the GCR coarsest solve and the MinRes smoother;
+        # the inverses are built for the final hierarchy only
+        self._defer_dense = True
+        try:
+            self._inv_iter_fcycle(self.fine, it)
+        finally:
+            self._defer_dense = False
 
     def _setup_cycles(self, level: MGLevel, tvs):
         """The bootstrap cycle of every test vector, one at a time

@@ -15,6 +15,12 @@ slab read faces received from the neighbor ranks: halos = {mu: (fwd, bwd)}
 with fwd = v(x + mu) on the slab's last mu slice and bwd = v(x - mu) on its
 first, each [*batch, d, V / n_mu] in lexicographic order of the remaining
 coordinates.
+
+Compressed blocks (the JAX package's CoarseStencilSoA.compress, stencil.py:
+385-403) are the same tensor rounded to bfloat16 and stored as a real
+tensor [K, d, d, V, 2] with (re, im) interleaved, so one block entry is one
+32-bit pair; they apply to complex64 fields only, widened to float32 before
+the multiply-add (pallas_coarse.py:114-116).
 """
 
 from __future__ import annotations
@@ -84,11 +90,34 @@ def neighbor(v: torch.Tensor, k: int, lattice, halos=None) -> torch.Tensor:
     return w.reshape(shape)
 
 
+def compress(blocks: torch.Tensor) -> torch.Tensor:
+    """complex64 blocks [..., V] -> contiguous bfloat16 pairs [..., V, 2]
+    (round to nearest even, as the JAX package's astype)."""
+    if blocks.dtype != torch.complex64:
+        raise TypeError(f"bf16 block storage rounds complex64 blocks, got {blocks.dtype}")
+    return torch.view_as_real(blocks.contiguous()).to(torch.bfloat16)
+
+
+def widen(blocks: torch.Tensor) -> torch.Tensor:
+    """Blocks as complex numbers: bfloat16 pairs widened to complex64,
+    complex blocks as they are."""
+    if blocks.dtype == torch.bfloat16:
+        return torch.view_as_complex(blocks.float())
+    return blocks
+
+
+def _check_block_dtype(blocks, v):
+    if blocks.dtype == torch.bfloat16 and v.dtype != torch.complex64:
+        raise TypeError(f"bf16 blocks apply to complex64 fields, got {v.dtype}")
+
+
 def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
                        parity=None, parity_offset: int = 0):
     """Plain K4: out[i, x] = sum_{k in terms} sum_j B_k[j, i, x] v(n_k(x))[j]
-    with the same mask and (global) parity semantics as the kernel."""
+    with the same mask and (global) parity semantics as the kernel; bf16
+    blocks are widened term by term."""
     lattice = tuple(lattice)
+    _check_block_dtype(blocks, v)
     masks = None
     if mask_block is not None:
         fwd, bwd = intra_block_masks(lattice, mask_block)
@@ -99,7 +128,7 @@ def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
         w = neighbor(v, k, lattice)
         if masks is not None and k > 0:
             w = w * masks[k - 1]
-        out = out + torch.einsum("jix,...jx->...ix", blocks[k], w)
+        out = out + torch.einsum("jix,...jx->...ix", widen(blocks[k]), w)
     if parity is not None:
         out = out * parity_mask(lattice, parity, v.real.dtype, v.device,
                                 parity_offset)
@@ -109,8 +138,9 @@ def coarse_apply_plain(blocks, v, lattice, terms=(0, 9), mask_block=None,
 def coarse_apply_halo_plain(blocks, v, lattice, halos, terms=(0, 9)):
     """Plain K5: coarse_apply_plain on one slab whose hops across the
     sharded axes read the received faces (halos, see the module note)."""
+    _check_block_dtype(blocks, v)
     out = torch.zeros_like(v)
     for k in range(*terms):
-        out = out + torch.einsum("jix,...jx->...ix", blocks[k],
+        out = out + torch.einsum("jix,...jx->...ix", widen(blocks[k]),
                                  neighbor(v, k, tuple(lattice), halos))
     return out

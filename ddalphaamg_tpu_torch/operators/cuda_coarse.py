@@ -1,9 +1,14 @@
-"""Wrappers of the coarse-operator kernels K4 and K5 (csrc/coarse.cu).
+"""Wrappers of the coarse-operator kernels K4 and K5 and of their bf16-block
+instances K4-bf16 and K5-bf16 (csrc/coarse.cu).
 
 For tensors on the CPU they take the plain versions
 (operators/coarse.coarse_apply_plain / coarse_apply_halo_plain); for CUDA
 tensors they launch the kernel or raise.  Fields may carry a leading batch
-axis: v [B, d, V].
+axis: v [B, d, V].  The block dtype picks the instance: complex blocks of
+the field's dtype (complex64 or complex128), or bf16 pairs [K, d, d, V, 2]
+(operators/coarse.compress) with complex64 fields.  Every other
+combination raises, complex128 fields with bf16 blocks included (the JAX
+package compresses only its f32 accelerator path).
 """
 
 from __future__ import annotations
@@ -18,23 +23,36 @@ from .coarse import coarse_apply_halo_plain, coarse_apply_plain
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64"}
 
 
+def _instance(blocks, v) -> str:
+    """The kernel name suffix of a (blocks, field) dtype pair."""
+    if blocks.dtype == torch.bfloat16 and v.dtype == torch.complex64:
+        return "bf16"
+    if v.dtype in _SUFFIX and blocks.dtype == v.dtype:
+        return _SUFFIX[v.dtype]
+    raise TypeError(f"coarse kernel takes complex64/complex128 blocks of the field's "
+                    f"dtype or bf16 blocks with complex64 fields, got {blocks.dtype} "
+                    f"and {v.dtype}")
+
+
 def _check(blocks, v, lattice, terms, others=()):
-    if v.dtype not in _SUFFIX or blocks.dtype != v.dtype:
-        raise TypeError(f"coarse kernel takes matching complex64/complex128 "
-                        f"operands, got {blocks.dtype} and {v.dtype}")
+    inst = _instance(blocks, v)
     for t in (blocks, *others):
-        if t.device != v.device or t.dtype != v.dtype:
-            raise ValueError("blocks, field and faces must share device and dtype")
+        if t.device != v.device:
+            raise ValueError("blocks, field and faces must share a device")
+    for f in others:
+        if f.dtype != v.dtype:
+            raise ValueError("faces must have the field's dtype")
     if not all(t.is_contiguous() for t in (blocks, v, *others)):
         raise ValueError("operands must be contiguous")
-    K, d, d2, V = blocks.shape
-    if d != d2 or V != math.prod(lattice) or v.shape[-2:] != (d, V):
+    K, d, d2, V = blocks.shape[:4]
+    if (d != d2 or V != math.prod(lattice) or v.shape[-2:] != (d, V)
+            or blocks.shape[4:] != ((2,) if inst == "bf16" else ())):
         raise ValueError(f"shapes {tuple(blocks.shape)} / {tuple(v.shape)} "
                          f"do not match lattice {lattice}")
     k0, k1 = terms
     if not 0 <= k0 < k1 <= K:
         raise ValueError(f"terms {terms} outside [0, {K})")
-    return d, V, int(v.numel() // (d * V))
+    return inst, d, V, int(v.numel() // (d * V))
 
 
 def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
@@ -51,11 +69,11 @@ def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
     if v.device.type == "cpu":
         return coarse_apply_plain(blocks, v, lattice, terms, mask_block,
                                   parity, parity_offset)
-    d, V, batch = _check(blocks, v, lattice, terms)
+    inst, d, V, batch = _check(blocks, v, lattice, terms)
     out = torch.empty_like(v)
     mb = tuple(mask_block) if mask_block is not None else (0, 0, 0, 0)
-    fn = getattr(kernels.lib(), f"ddaamg_coarse_{_SUFFIX[v.dtype]}")
-    kernels.KERNELS["K4"].launches += 1
+    fn = getattr(kernels.lib(), f"ddaamg_coarse_{inst}")
+    kernels.KERNELS["K4-bf16" if inst == "bf16" else "K4"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(), d, k0, k1,
             *lattice, *mb, -1 if parity is None else int(parity),
             int(parity_offset) & 1, batch, kernels.stream_ptr(v.device))
@@ -73,7 +91,7 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9)):
     if v.device.type == "cpu":
         return coarse_apply_halo_plain(blocks, v, lattice, halos, terms)
     faces = [f for mu in sorted(halos) for f in halos[mu]]
-    d, V, batch = _check(blocks, v, lattice, terms, faces)
+    inst, d, V, batch = _check(blocks, v, lattice, terms, faces)
     for mu, pair in halos.items():
         for f in pair:
             if f.numel() != batch * d * (V // lattice[mu]):
@@ -82,8 +100,8 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9)):
     ptr = {mu: tuple(f.data_ptr() for f in pair) for mu, pair in halos.items()}
     none = (None, None)
     out = torch.empty_like(v)
-    fn = getattr(kernels.lib(), f"ddaamg_coarse_halo_{_SUFFIX[v.dtype]}")
-    kernels.KERNELS["K5"].launches += 1
+    fn = getattr(kernels.lib(), f"ddaamg_coarse_halo_{inst}")
+    kernels.KERNELS["K5-bf16" if inst == "bf16" else "K5"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(),
             *ptr.get(0, none), *ptr.get(1, none), d, *terms, *lattice, batch,
             kernels.stream_ptr(v.device))

@@ -20,12 +20,20 @@ A stencil with a mesh (parallel/mesh.SolverMesh) is one rank's slab of a
 sharded level: geom is the slab's geometry, full_op and hop exchange faces
 with the neighbor ranks (parallel/shard_ops.py), the other operators stay
 local, and parities count global coordinates.
+
+The coarsest level's direct solve (MGConfig.coarsest_direct; the JAX
+package's stencil.py:599-727) lives here too: the operator, or its
+even-site Schur complement, materialized column by column from one-hot
+fields through the stencil's own kernels, inverted with torch.linalg.inv
+in the level's complex dtype (or stored in bf16), and applied as one
+matvec (operators/cuda_dense.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,11 +41,12 @@ import torch
 from ..geometry import Geometry
 from ..parallel import comm, shard_ops
 from ..parallel.mesh import shard_field
-from . import cuda_coarse, cuda_dslash, fast
-from .coarse import CoarseOperator
+from . import cuda_coarse, cuda_dense, cuda_dslash, fast
+from .coarse import CoarseOperator, compress
 from .wilson import WilsonOperator
 
 EVEN, ODD = 0, 1
+COLUMNS_PER_BATCH = 256   # one-hot columns per batched apply of a dense inverse build
 
 
 def _link_intra_mask(geom: Geometry) -> np.ndarray:
@@ -231,11 +240,20 @@ class CoarseStencilSoA(_SoALayout):
 
     @property
     def dtype(self):
-        return self.Pk.dtype
+        """The fields' dtype (complex64 for bf16-stored blocks)."""
+        return torch.complex64 if self.Pk.dtype == torch.bfloat16 else self.Pk.dtype
 
     @property
     def device(self):
         return self.Pk.device
+
+    def compress(self) -> "CoarseStencilSoA":
+        """The stencil with Pk and Pk_inv stored in bf16 (the JAX package's
+        compress, stencil.py:385-403); fields, parity masks and sums stay
+        complex64 / f32, and K4-bf16 / K5-bf16 widen each block entry
+        before the multiply-add."""
+        return dataclasses.replace(self, Pk=compress(self.Pk),
+                                   Pk_inv=compress(self.Pk_inv))
 
     @property
     def dof(self) -> int:
@@ -273,6 +291,73 @@ class CoarseStencilSoA(_SoALayout):
 
     def hop_intra(self, v):
         return self._apply(self.Pk, v, (1, 9), masked=True)
+
+
+def schur(s, v):
+    """The even-site Schur complement S = A_ee - h_eo A_oo^-1 h_oe applied
+    to v (the operator of the coarsest odd-even solve,
+    coarse_solve_odd_even_PRECISION, src/coarse_oddeven_generic.c:1139)."""
+    ve = s.even * v
+    return s.even * (s.self_op(ve) - s.hop(s.self_inv(s.hop(ve), ODD)))
+
+
+def _invert_columns(op, s, cols, rows, bf16: bool):
+    """Inverse of the matrix M[i, k] = op(e_cols[k])[rows[i]] (rows and
+    cols index the flattened [d, V] field; None = all), as [1, n, n]:
+    complex in the stencil's dtype or, with bf16, rounded to bf16 pairs
+    [1, n, n, 2].  The one-hot columns run through the kernels' batch axis,
+    COLUMNS_PER_BATCH at a time."""
+    if s.mesh is not None:
+        raise ValueError("a dense inverse needs the whole (replicated) level")
+    shape = s.field_shape
+    n = math.prod(shape)
+    cols = torch.arange(n, device=s.device) if cols is None else cols
+    Mt = torch.empty((len(cols), n if rows is None else len(rows)),
+                     dtype=s.dtype, device=s.device)            # Mt[k, i]
+    for c0 in range(0, len(cols), COLUMNS_PER_BATCH):
+        c = cols[c0:c0 + COLUMNS_PER_BATCH]
+        e = torch.zeros((len(c), n), dtype=s.dtype, device=s.device)
+        e[torch.arange(len(c), device=s.device), c] = 1
+        y = op(e.reshape(len(c), *shape)).reshape(len(c), n)
+        Mt[c0:c0 + len(c)] = y if rows is None else y[:, rows]
+    inv = torch.linalg.inv(Mt.transpose(0, 1))[None]
+    return compress(inv) if bf16 else inv
+
+
+def dense_inverse(s, bf16: bool = False):
+    """Dense inverse of the stencil's full operator (MGConfig.coarsest_direct
+    where odd-even does not apply), [1, n, n] with n = d V."""
+    return _invert_columns(s.full_op, s, None, None, bf16)
+
+
+def schur_even_indices(s) -> torch.Tensor:
+    """Flat indices of the even-site entries of the [d, V] field layout (the
+    compaction map of the Schur-complement direct solve)."""
+    mask = s.even.expand(s.field_shape).reshape(-1) > 0.5
+    return torch.nonzero(mask).reshape(-1)
+
+
+def dense_schur_inverse(s, idx, bf16: bool = False):
+    """Dense inverse of the even-site Schur complement (schur) compacted to
+    the entries idx = schur_even_indices(s), [1, n/2, n/2]: a quarter of the
+    full inverse's bytes for two more stencil applies per solve."""
+    return _invert_columns(lambda v: schur(s, v), s, idx, idx, bf16)
+
+
+def dense_schur_solve(s, inv, idx, b):
+    """Coarsest direct solve of D x = b (b [d, V]) with the Schur inverse:
+    odd elimination, one [n/2, n/2] matvec, odd reconstruction."""
+    b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
+    xc = cuda_dense.matvec(inv, b_e.reshape(1, -1)[:, idx])
+    x_e = torch.zeros_like(b_e).reshape(-1)
+    x_e[idx] = xc[0]
+    x_e = x_e.reshape(b.shape)
+    return x_e + s.self_inv(b - s.hop(x_e), ODD)
+
+
+def dense_solve(inv, b):
+    """x = inv b for b in the stencil's field layout (one matvec)."""
+    return cuda_dense.matvec(inv, b.reshape(1, -1)).reshape(b.shape)
 
 
 def herm_inv(a: torch.Tensor) -> torch.Tensor:

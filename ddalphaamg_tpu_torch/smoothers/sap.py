@@ -16,15 +16,28 @@ On a sharded level (a stencil with a mesh) the colors come from global block
 coordinates, as slabs of the global color masks; block solves and their
 reductions stay on the rank, and the residual update goes through the
 sharded full operator.
+
+With precomputed block inverses (MGConfig.smoother_direct; the JAX
+package's sap.py:110-194) a block solve is exact: one batched matvec
+against the [nblocks, m, m] inverses of the block-restricted operator,
+m = block volume x dof (operators/cuda_dense.py), instead of block_iter
+MinRes sweeps.  Blocks divide a slab, so a sharded level builds the
+inverses of its own blocks without communication.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..geometry import Geometry
+from ..operators import cuda_dense
+from ..operators.coarse import compress
 from ..operators.stencil import ODD
+
+COLUMNS_PER_BATCH = 128   # one-hot columns per batched block_op of an inverse build
 
 
 def color_masks(geom: Geometry, scheme: str = "red_black") -> list[np.ndarray]:
@@ -91,9 +104,62 @@ def _block_schur(s, v):
     return out - s.even * s.hop_intra(t)
 
 
-def _block_solve(s, r, block_iter: int, odd_even: bool):
-    """Approximate block solve of blockD delta = r (r masked to one color):
-    local MinRes, or the block odd-even Schur MinRes."""
+def to_blocks(v, geom: Geometry):
+    """[*, d, V] -> [*, nblocks, block_vol * d]: blocks lexicographic on the
+    block grid, entries (site in the block, lexicographic; dof) in the JAX
+    package's order (sap.to_blocks)."""
+    bt, bz, by, bx = geom.block
+    gt, gz, gy, gx = geom.block_grid
+    n, d = v.dim() - 2, v.shape[-2]
+    x = v.reshape(*v.shape[:-2], d, gt, bt, gz, bz, gy, by, gx, bx)
+    x = x.permute(*range(n), n + 1, n + 3, n + 5, n + 7, n + 2, n + 4, n + 6, n + 8, n)
+    return x.reshape(*v.shape[:-2], gt * gz * gy * gx, -1)
+
+
+def from_blocks(x, geom: Geometry, d: int):
+    """Inverse of to_blocks: [*, nblocks, block_vol * d] -> [*, d, V]."""
+    bt, bz, by, bx = geom.block
+    gt, gz, gy, gx = geom.block_grid
+    n = x.dim() - 2
+    v = x.reshape(*x.shape[:-2], gt, gz, gy, gx, bt, bz, by, bx, d)
+    v = v.permute(*range(n), n + 8, n, n + 4, n + 1, n + 5, n + 2, n + 6, n + 3, n + 7)
+    return v.reshape(*x.shape[:-2], d, -1)
+
+
+def build_block_inverse(s, bf16: bool = False):
+    """Inverses of the Schwarz-block-restricted operator of a coarse
+    stencil, [nblocks, m, m] (complex in the stencil's dtype, or rounded to
+    bf16 pairs [nblocks, m, m, 2]).  Column k of every block comes from one
+    block_op (masked K4) of the field that is 1 at entry k of each block;
+    the columns run through the kernels' batch axis, COLUMNS_PER_BATCH at a
+    time, and the blocks are inverted by one batched torch.linalg.inv."""
+    geom, d = s.geom, s.dof
+    nb = math.prod(geom.block_grid)
+    m = math.prod(geom.block) * d
+    M = torch.empty((nb, m, m), dtype=s.dtype, device=s.device)   # [b, row, col]
+    for c0 in range(0, m, COLUMNS_PER_BATCH):
+        c = min(COLUMNS_PER_BATCH, m - c0)
+        e = torch.zeros((c, nb, m), dtype=s.dtype, device=s.device)
+        k = torch.arange(c, device=s.device)
+        e[k, :, c0 + k] = 1
+        M[:, :, c0:c0 + c] = to_blocks(s.block_op(from_blocks(e, geom, d)), geom).permute(1, 2, 0)
+    inv = torch.linalg.inv(M)
+    return compress(inv) if bf16 else inv
+
+
+def apply_block_inverse(s, binv, r):
+    """delta = blockD^-1 r (r [d, V] masked to one color) by one batched
+    matvec; blocks of the other color hold zeros and stay zero."""
+    rb = to_blocks(r, s.geom)
+    return from_blocks(cuda_dense.matvec(binv, rb), s.geom, s.dof)
+
+
+def _block_solve(s, r, block_iter: int, odd_even: bool, block_inv=None):
+    """Block solve of blockD delta = r (r masked to one color): exact with
+    the precomputed block inverses, else the reference's approximate local
+    MinRes or block odd-even Schur MinRes."""
+    if block_inv is not None:
+        return apply_block_inverse(s, block_inv, r)
     if not odd_even:
         return _minres(s, r, s.block_op, block_iter)
     d_o1 = s.self_inv(r, ODD)
@@ -103,27 +169,29 @@ def _block_solve(s, r, block_iter: int, odd_even: bool):
     return s.even * d_e + d_o
 
 
-def _sweep(s, x, r, colors, cycles: int, block_iter: int, odd_even: bool):
+def _sweep(s, x, r, colors, cycles: int, block_iter: int, odd_even: bool,
+           block_inv=None):
     """cycles sweeps over the colors; the last step skips the residual update."""
     seq = list(colors) * cycles
     for mask in seq[:-1]:
-        delta = _block_solve(s, mask * r, block_iter, odd_even)
+        delta = _block_solve(s, mask * r, block_iter, odd_even, block_inv)
         x = x + delta
         r = r - s.full_op(delta)
-    return x + _block_solve(s, seq[-1] * r, block_iter, odd_even)
+    return x + _block_solve(s, seq[-1] * r, block_iter, odd_even, block_inv)
 
 
-def sap_smooth(s, colors, eta, cycles: int, block_iter: int, odd_even: bool):
+def sap_smooth(s, colors, eta, cycles: int, block_iter: int, odd_even: bool,
+               block_inv=None):
     """M(eta) from a zero initial guess (preconditioner application)."""
     return _sweep(s, torch.zeros_like(eta), eta, colors, cycles, block_iter,
-                  odd_even)
+                  odd_even, block_inv)
 
 
 def sap_smooth_from(s, colors, eta, x, cycles: int, block_iter: int,
-                    odd_even: bool):
+                    odd_even: bool, block_inv=None):
     """Post-smoothing with initial guess x (reference smoother _RES path)."""
     r = eta - s.full_op(x)
-    return _sweep(s, x, r, colors, cycles, block_iter, odd_even)
+    return _sweep(s, x, r, colors, cycles, block_iter, odd_even, block_inv)
 
 
 class SchwarzPreconditioner:

@@ -19,7 +19,7 @@ from ddalphaamg_tpu import api as japi
 from ddalphaamg_tpu import config as jconfig
 from ddalphaamg_tpu import io as jio
 from ddalphaamg_tpu_torch import api, cli, config, kernels
-from ddalphaamg_tpu_torch.operators import cuda_coarse, cuda_dslash
+from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash
 from ddalphaamg_tpu_torch.solvers import device_gmres
 
 torch.set_num_threads(1)
@@ -101,7 +101,11 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_coarse.coarse_apply(blocks, v, lat)
     face = torch.randn(4, V // lat[1], dtype=torch.complex64)
     cuda_coarse.coarse_apply_halo(blocks, v, lat, {1: (face, face)})
-    assert kernels.counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    cuda_coarse.coarse_apply(coarse.compress(blocks), v, lat)
+    cuda_coarse.coarse_apply_halo(coarse.compress(blocks), v, lat, {1: (face, face)})
+    cuda_dense.matvec(coarse.compress(blocks[0, None, :, :, 0]), v[None, :, 0])
+    assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
+    assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6"}
 
 
 def test_cuda_request_never_runs_on_cpu():

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1-K5 against their plain PyTorch versions
-on a card, and a small solve through them.  Every test here needs a CUDA
+"""The hand-written CUDA kernels K1-K6 (K4 and K5 with f32, f64 and bf16
+blocks) against their plain PyTorch versions on a card, and small solves
+through them.  Every test here needs a CUDA
 device and skips without one.  The file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from ddalphaamg_tpu_torch import api, config, kernels
-from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
+from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash, fast
 from ddalphaamg_tpu_torch.operators.stencil import ODD
 
 torch.set_num_threads(1)
@@ -106,6 +107,39 @@ def test_coarse_halo_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_coarse_bf16_kernels_match_plain(cuda):
+    lat, d, B = (4, 2, 2, 4), 24, 5
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    Pk = coarse.compress(_cplx((9, d, d, V), gen, torch.complex64, cuda))
+    v = _cplx((B, d, V), gen, torch.complex64, cuda)
+    tol = TOL[torch.complex64]
+    for terms, mask, parity in [((0, 9), None, None), ((1, 9), (2, 2, 2, 2), None),
+                                ((0, 1), None, ODD)]:
+        got = cuda_coarse.coarse_apply(Pk, v, lat, terms, mask, parity)
+        want = coarse.coarse_apply_plain(Pk, v, lat, terms, mask, parity)
+        assert _rel(got, want) < tol, (terms, mask, parity)
+    halos = {mu: tuple(_cplx((B, d, V // lat[mu]), gen, torch.complex64, cuda)
+                       for _ in range(2)) for mu in (0, 1)}
+    got = cuda_coarse.coarse_apply_halo(Pk, v, lat, halos)
+    assert _rel(got, coarse.coarse_apply_halo_plain(Pk, v, lat, halos)) < tol
+    with pytest.raises(TypeError):
+        cuda_coarse.coarse_apply(Pk, v.to(torch.complex128), lat)
+
+
+@pytest.mark.gpu
+def test_dense_bf16_matvec_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for nb, m in [(1, 256), (6, 132)]:
+        A = coarse.compress(_cplx((nb, m, m), gen, torch.complex64, cuda))
+        x = _cplx((nb, m), gen, torch.complex64, cuda)
+        assert _rel(cuda_dense.matvec(A, x), cuda_dense.matvec_plain(A, x)) < 1e-5
+    with pytest.raises(ValueError):
+        cuda_dense.matvec(coarse.compress(_cplx((1, 6, 6), gen, torch.complex64, cuda)),
+                          _cplx((1, 6), gen, torch.complex64, cuda))
+
+
+@pytest.mark.gpu
 def test_coarse_parity_offset_matches_plain(cuda):
     lat, d = (2, 3, 2, 2), 8
     V = int(np.prod(lat))
@@ -118,9 +152,7 @@ def test_coarse_parity_offset_matches_plain(cuda):
         assert _rel(got, want) < TOL[torch.complex64], off
 
 
-@pytest.mark.gpu
-def test_small_solve_runs_through_the_kernels(cuda):
-    p = config.parse_ini("""configuration: none
+SMALL = """configuration: none
 number of levels: 3
 d0 global lattice: 8 8 8 8
 d0 test vectors: 8
@@ -129,7 +161,12 @@ d1 test vectors: 8
 d1 setup iter: 1
 method: 2
 mixed precision: 1
-""")
+"""
+
+
+@pytest.mark.gpu
+def test_small_solve_runs_through_the_kernels(cuda):
+    p = config.parse_ini(SMALL)
     U = _unitary_links((8, 8, 8, 8), 4)
     kernels.reset_counts()
     s = api.Solver(p, device=cuda)
@@ -140,4 +177,22 @@ mixed precision: 1
     assert info.converged and s.true_residual(x, rhs) < 1e-10
     counts = kernels.counts()
     # one rank: K5 (the sharded coarse apply) has no part in the solve
-    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")) and counts["K5"] == 0, counts
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")), counts
+    assert all(counts[k] == 0 for k in ("K5", "K4-bf16", "K5-bf16", "K6")), counts
+
+
+@pytest.mark.gpu
+def test_small_solve_with_the_options_runs_through_the_kernels(cuda):
+    p = config.parse_ini(SMALL + "coarse block bf16: 1\ncoarsest direct: 1\n"
+                                 "smoother direct: 1\n")
+    U = _unitary_links((8, 8, 8, 8), 4)
+    kernels.reset_counts()
+    s = api.Solver(p, device=cuda)
+    s.set_conf(U)
+    s.setup()
+    rhs = config.make_rhs("ones", s.lattice)
+    x, info = s.solve(rhs)
+    assert info.converged and s.true_residual(x, rhs) < 1e-10
+    assert info.coarse_matvec_average == 0 and info.coarsest_inverse_applies > 0
+    counts = kernels.counts()
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K4-bf16", "K6")), counts

@@ -35,8 +35,10 @@ mixed precision: 0
 """
 
 
-def _run_pair(L, levels, n, s0, s1, seed):
-    text = INI.format(L=L, levels=levels, n=n, s0=s0, s1=s1)
+def _run_pair(L, levels, n, s0, s1, seed, extra=""):
+    """The JAX package's Multigrid and the port's Solver on the same field
+    and injected test vectors, set up from INI plus the ini lines extra."""
+    text = INI.format(L=L, levels=levels, n=n, s0=s0, s1=s1) + extra
     lat = (L,) * 4
     U = rough_field(lat, seed=seed)
     tv0 = random_spinor((n, *lat, 4, 3), seed=seed + 1)

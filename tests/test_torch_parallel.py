@@ -212,7 +212,7 @@ def test_plain_k5_matches_jax_coarse_sharded():
     for rank in range(4):
         mesh = pmesh.SolverMesh(dims, rank)
         loc = pmesh.local_lattice(mesh, COARSE)
-        blocks = convert.packed_blocks_tz(Pk, COARSE, mesh=mesh)
+        blocks = convert.packed_blocks(Pk, COARSE, mesh=mesh)
         vl = pmesh.shard_field(mesh, vg, COARSE)
         halos = {}
         for mu in (0, 1):       # faces cut from the global field's neighbors

@@ -71,6 +71,27 @@ def solve(mesh, ini, U):
     return x, info.iterations, info.relres, s.true_residual(x, rhs)
 
 
+def solve_sharded_levels(mesh, ini, U, inner_tol_clip=None):
+    """Solver whose intermediate levels are all sharded (min_local_sites 0;
+    mesh None: one rank): (x, iterations, exact relres, per level (sharded,
+    cycle stencil dtype, block inverse dtype, dense inverse kind))."""
+    p = config.parse_ini(ini)
+    p.inner_tol_clip = inner_tol_clip
+    s = api.Solver(p, device="cpu", mesh=mesh)
+    s.set_conf(U, links_have_bc=True)
+    cfg = s._mg_config()
+    cfg.min_local_sites = 0
+    s.mg = Multigrid(s._op_slab, cfg)
+    s.mg.bootstrap_setup()
+    rhs = config.make_rhs("ones", s.lattice)
+    x, info = s.solve(rhs)
+    levels = [(lvl.stencil.mesh is not None,
+               None if lvl.cycle_stencil is None else str(lvl.cycle_stencil.Pk.dtype),
+               None if lvl.block_inv is None else str(lvl.block_inv.dtype),
+               type(lvl.dense_inv).__name__) for lvl in s.mg._levels()]
+    return x, info.iterations, s.true_residual(x, rhs), levels
+
+
 def odd_offset(mesh, lattice, block, U, phi, A, Df, Db, v):
     """Odd-even pieces on slabs whose global offset is odd: the fine even
     mask, odd-site clover inverse and a block odd-even SAP sweep, and the
@@ -94,7 +115,8 @@ def run(mesh, device, cases):
     """Every case of `cases` ({name: (function name, kwargs)}) on this rank."""
     torch.set_num_threads(1)
     fns = {"fine_full_op": fine_full_op, "coarse_hops": coarse_hops,
-           "mg_cycle": mg_cycle, "solve": solve, "odd_offset": odd_offset}
+           "mg_cycle": mg_cycle, "solve": solve, "odd_offset": odd_offset,
+           "solve_sharded_levels": solve_sharded_levels}
     return {name: fns[fn](mesh, **kw) for name, (fn, kw) in cases.items()}
 
 
