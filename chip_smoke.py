@@ -14,11 +14,15 @@ Phases, one result line each (or a few), in order:
               of the 8^4 level on the (1, 2, 1, 1) mesh, (8, 4, 8, 8) with z
               faces, and on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and
               z faces, faces cut from a random global field), batch 1 and
-              28, with the max relative error against 1e-5 (f32) / 1e-13
-              (f64) and the kernel and plain times from CUDA events after
-              warm-up.  K4-bf16 and K5-bf16 run the same cases on the same
-              blocks rounded to bf16 (tolerance 1e-5: f32 sums in another
-              order), K6 the products with the two stored inverses of
+              28, and the batched applies of the setup (K4 at 4^4, batch 256:
+              full, hop and self_inv odd, the Schur inverse's column build;
+              K4 at 8^4, masked full, batch 56 for the Galerkin build and
+              128 for the block inverses' columns), with the max relative
+              error against 1e-5 (f32) / 1e-13 (f64) and the kernel and
+              plain times from CUDA events after warm-up.  K4-bf16 and
+              K5-bf16 run the same cases on the same blocks rounded to
+              bf16 (tolerance 1e-5: f32 sums in another order), K6 the
+              products with the two stored inverses of
               rough16, [1, 7168, 7168] and [256, 896, 896].  Each line also
               gives the least time the card could take (bytes once over
               3.35 TB/s or operations over the peak rate, whichever is
@@ -29,8 +33,10 @@ Phases, one result line each (or a few), in order:
               neighbour fields for K1 / K2 (the clover a ninth term for
               K1), over the unpacked 6 x 6 clover blocks for K3, over the
               stacked neighbour fields for K4 / K5 (the TPU kernel's own
-              input; widened complex64 blocks for the bf16 rows), and
-              torch.matmul on the widened complex64 matrix for K6
+              input; widened complex64 blocks for the bf16 rows, zeroed at
+              the other parity's sites for self_inv odd), and torch.matmul
+              on the widened complex64 matrix for K6, all in full f32
+              (utils.pin_full_precision)
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
               solve of a right-hand side of ones, exact relative residual
@@ -201,13 +207,14 @@ def coarse_work(blocks, v, lat, terms, mask=None, parity=None, faces=()):
             8 * d * d * pairs * batch)
 
 
-def stacked_einsum(blocks, v, lat, terms, mask=None, halos=None):
+def stacked_einsum(blocks, v, lat, terms, mask=None, halos=None, parity=None):
     """The library call for K4 / K5: one torch.einsum over the neighbour
     fields stacked beforehand (the TPU kernel's input, pallas_coarse.py:
-    25-31); returns a function of no arguments."""
+    25-31), with the blocks zeroed at the other parity's sites for a parity
+    apply; returns a function of no arguments."""
     import numpy as np
 
-    from ddalphaamg_tpu_torch.operators import coarse
+    from ddalphaamg_tpu_torch.operators import coarse, fast
 
     ks = range(*terms)
     fields = []
@@ -221,7 +228,10 @@ def stacked_einsum(blocks, v, lat, terms, mask=None, halos=None):
         fields.append(w * masks[k - 1] if masks is not None and k > 0 else w)
     # stored [x, j, k, i] and [x, j, k, b], so that the einsum's batched
     # product over x reads both without a copy
-    B = coarse.widen(blocks[terms[0]:terms[1]]).permute(3, 1, 0, 2).contiguous()
+    B = coarse.widen(blocks[terms[0]:terms[1]])
+    if parity is not None:
+        B = B * fast.parity_mask(lat, parity, B.real.dtype, B.device)
+    B = B.permute(3, 1, 0, 2).contiguous()
     stack = torch.stack(fields, dim=-1).permute(2, 1, 3, 0).contiguous()
     B, stack = B.permute(2, 1, 3, 0), stack.permute(3, 2, 1, 0)     # [k, j, i, x], [b, k, j, x]
     return lambda: torch.einsum("kjix,bkjx->bix", B, stack)
@@ -299,7 +309,7 @@ def clover_library(cdiag, coff, phi, lat, parity=None):
 def check_kernels(results):
     import numpy as np
 
-    from ddalphaamg_tpu_torch import io
+    from ddalphaamg_tpu_torch import io, utils
     from ddalphaamg_tpu_torch.geometry import Geometry
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
     from ddalphaamg_tpu_torch.operators.stencil import ODD, WilsonStencilSoA
@@ -307,6 +317,7 @@ def check_kernels(results):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
+    utils.pin_full_precision()        # the library calls run in full f32, as the kernels
     params = rough16_params()
     U, _ = io.read_gauge_field(params.configuration)
     lat = tuple(U.shape[1:5])
@@ -350,21 +361,33 @@ def check_kernels(results):
              ("block masked K=9", (0, 9), (2, 2, 2, 2), None),
              ("hop_intra masked K=8", (1, 9), (2, 2, 2, 2), None),
              ("self K=1", (0, 1), None, None), ("self_inv odd K=1", (0, 1), None, ODD)]
+    # the batched applies of the setup at d = 2N: the coarsest level's Schur
+    # inverse from 256 one-hot columns a launch (operators/stencil.py
+    # _invert_columns), the Galerkin build of the coarsest operator from the
+    # 2N basis fields (mg/galerkin.py), the depth-1 block inverses from 128
+    # columns a launch (smoothers/sap.build_block_inverse)
+    setup = {lat[0] // 4: [("full K=9", (0, 9), None, None, 256, "Schur columns"),
+                           ("hop K=8", (1, 9), None, None, 256, "Schur columns"),
+                           ("self_inv odd K=1", (0, 1), None, ODD, 256, "Schur columns")],
+             lat[0] // 2: [("block masked K=9", (0, 9), (2, 2, 2, 2), None, d, "Galerkin"),
+                           ("block masked K=9", (0, 9), (2, 2, 2, 2), None, 128,
+                            "block-inverse columns")]}
     for L in (lat[0] // 2, lat[0] // 4):
         clat = (L,) * 4
         V = int(np.prod(clat))
         Pk = torch.randn((9, d, d, V), generator=gen, dtype=torch.complex64, device=dev)
         Pk16 = coarse.compress(Pk)
-        for key, blocks in (("K4", Pk), ("K4-bf16", Pk16)):
-            for B in BATCHES:
-                v = torch.randn((B, d, V), generator=gen, dtype=torch.complex64, device=dev)
-                for name, terms, mask, parity in cases:
-                    compare(results, key, f"{key} {name} {L}^4 d={d} batch {B}",
-                            lambda: cuda_coarse.coarse_apply(blocks, v, clat, terms, mask, parity),
-                            lambda: coarse.coarse_apply_plain(blocks, v, clat, terms, mask, parity),
-                            torch.complex64, coarse_work(blocks, v, clat, terms, mask, parity),
-                            None if parity is not None
-                            else stacked_einsum(blocks, v, clat, terms, mask))
+        runs = [(key, blocks, B, case) for key, blocks in (("K4", Pk), ("K4-bf16", Pk16))
+                for B in BATCHES for case in cases]
+        runs += [("K4", Pk, B, (f"{name} ({what})", terms, mask, parity))
+                 for name, terms, mask, parity, B, what in setup[L]]
+        for key, blocks, B, (name, terms, mask, parity) in runs:
+            v = torch.randn((B, d, V), generator=gen, dtype=torch.complex64, device=dev)
+            compare(results, key, f"{key} {name} {L}^4 d={d} batch {B}",
+                    lambda: cuda_coarse.coarse_apply(blocks, v, clat, terms, mask, parity),
+                    lambda: coarse.coarse_apply_plain(blocks, v, clat, terms, mask, parity),
+                    torch.complex64, coarse_work(blocks, v, clat, terms, mask, parity),
+                    stacked_einsum(blocks, v, clat, terms, mask, parity=parity))
         del Pk, Pk16
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
     check_dense_kernel(results, gen, d, lat)

@@ -31,45 +31,108 @@
 // Layout: fields [batch, d, V]; blocks [K, d (j), d (i), V], sites fastest,
 // each entry a complex number of the field's precision or, compressed, one
 // 32-bit (re, im) pair of bf16 (complex64 fields only).  The storage type is
-// a template parameter of the one kernel, so the instances cannot drift
-// apart: a bf16 entry is widened exactly (__bfloat162float) and the sums run
-// in f32 in the same fixed order as with f32 blocks.
+// a template parameter of both kernels, so the instances cannot drift
+// apart: a bf16 entry is widened exactly (a bf16 is the upper half of an
+// f32) and the sums run in f32 in the same fixed order as with f32 blocks.
+// Blocks are assumed finite: a dropped term may still meet its (finite)
+// block entry times a zero field value.
 //
-// What bounds them on the H100: memory, in the blocks.  A full apply at
-// d = 56 reads 9 * 56^2 complex64 = 226 KB of blocks per site against
-// 9 * 56 * 8 B of field and 56 * 8 B of output, with 8 flop per 8-byte
-// block entry (1 flop/byte); the halo faces of K5 add d * 8 B per face site.
-// With bf16 blocks a full apply at 8^4, d = 56, batch 1 reads
-// 9 * 56^2 * 4 B * 4096 = 463 MB of blocks plus ~18 MB of fields: 0.144 ms
-// at 3.35 TB/s (f32 blocks: 925 MB, 0.28 ms), and a warp's load of one
-// (k, j, i) entry at 32 sites is 128 B instead of 256 B.
-// On the small coarse lattices of the main path (8^4 = 4096 and 4^4 = 256
-// sites; a 2-rank slab of 8^4 has 2048) the number of sites is too small to
-// hide the load latency with one thread per site, so the design spreads
-// each output over more threads: a thread block is TS sites x JS slices
-// of the j sum; a thread owns one site, a chunk of ICH output rows i and
-// every JS-th j, so a warp reads 32 consecutive sites of the same
-// (k, j, i) entry (coalesced) and only ICH complex accumulators live in
-// registers (not 56).  The JS partial sums meet in shared memory in a
-// fixed order, so results do not depend on scheduling.  The TPU kernel's
-// accumulation along a sequential grid axis over k becomes a loop over k
-// inside the thread, since thread blocks run in no order.  Neighbor
-// fields are gathered and masked here from coordinates (and, in K5, from
-// the faces), so no 9-field stack is ever built.  For a batch of
-// right-hand sides the batch index is the fastest block index, so the
-// blocks of one site tile are read by concurrently running thread blocks
-// and reach the other batch members from L2.
-#include <cuda_bf16.h>
+// Two kernels behind each C entry point: the launcher picks one by batch
+// and lattice size (`regime` 0), or the caller names it (1, 2).  Times
+// below: device time of raw launches on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit, d = 56, complex64 fields (scripts/
+// probe_torch_coarse.py; the earlier one-kernel design in brackets).
+//
+// 1. coarse_b1_kernel, one right-hand side: bound by memory, in the blocks
+//    (a full apply reads 9 d^2 entries per site once, one complex FMA
+//    each: 1 flop per byte in f32).  On the coarsest level (4^4 = 256
+//    sites) the danger is too few bytes in flight: one thread per site
+//    with a few 8-byte loads left the card latency-bound.  So a thread
+//    block is a tile of 16 sites (32 from B1_WIDE sites on, which measured
+//    faster there) and its up to 8 warps split the flattened term sum
+//    (k, j): lanes load 16 bytes (two complex64 sites, four bf16 sites) of
+//    one (k, j, i) row, a warp covers 32 / (tile / sites per load) terms
+//    at once, each thread issues the loads of two terms before it sums
+//    them, and the block loops over row chunks of 4 rows with one table
+//    of neighbour addresses.  At 4^4 that is 224 blocks (the earlier
+//    design: 56 on 132 SMs).  Partial sums meet in a fixed order: a
+//    butterfly across a warp's term slots, then the warps in order through
+//    shared memory.  Full apply at 4^4: 0.027 ms f32 [0.085], 0.014 ms
+//    bf16 [0.049], 63 / 61 % of the byte bound; at 8^4: 0.320 [0.326] /
+//    0.171 [0.222] ms, 87 / 81 %.  The coarsest level's f32 blocks with
+//    their self-inverse (64 MB) exceed the 50 MB L2, so the coarsest
+//    GCR's applies stream them from device memory; in bf16 (32 MB) they
+//    fit, and repeated applies can hit L2 (hit rates not measured).
+// 2. coarse_mrhs_kernel, a batch (the Galerkin build, the columns of the
+//    stored inverses, the sharded setups): per site a small product
+//    (d x 9d) x (9d x batch), bound by operations once each block entry is
+//    read for many right-hand sides.  A thread block owns 16 sites x 28
+//    rows x 28 right-hand sides (f64: 8); per term k and chunk of 8 j it
+//    stages the blocks B_k[j-chunk, i-chunk, tile] (plain strided rows,
+//    16-byte cp.async) and the gathered field v[b-tile, j-chunk, n_k(tile)]
+//    (masks and K5's faces as zero-filled or redirected copies) in a ring
+//    of 3 cp.async stages.  Each thread keeps a 7 x 7 (f64: 7 x 2) register
+//    tile of complex accumulators (rows x right-hand sides) of one site
+//    and does an outer product per j, so each entry read from shared
+//    memory feeds 7 right-hand sides and each field value 7 rows.  Products
+//    stay f32 (f64) FMAs on the CUDA cores, four fused multiply-adds per
+//    complex product (cmac).  Where the grid has at most half as many
+//    blocks as SMs (4^4 lattices) the stages of the term sum are split over
+//    the blocks of a cluster (up to 8), whose partial tiles are summed in
+//    rank order through distributed shared memory (a 128-block grid, the
+//    (4, 4, 8, 8) slab at batch 28, ran 10 % slower split in two).  8^4 full batch 28: 0.84 ms f32 [3.89],
+//    0.80 ms bf16 [3.81], 46 / 48 % of the 67 TFLOP/s bound.
+//
+//    Crossover (the probe's batch sweep): the batch-1 kernel costs about
+//    batch times its batch-1 time, the multi kernel about its time at 28.
+//    At 8^4 the multi kernel wins from batch 6 (f32) or 8 (bf16), at 4^4
+//    from about 9 (f32) or 12 (bf16), extrapolated from batches 1-8:
+//    MRHS_MIN_BATCH_WIDE and MRHS_MIN_BATCH.
+//
+// Both kernels: no atomics, sums in an order fixed by the code (two
+// launches on the same inputs give identical bits; the order differs
+// from the earlier design, so results differ in the last bits); ragged
+// edges (V not a multiple of the tile, V not a multiple of the sites in
+// 16 bytes -- then entry-sized loads and copies --, d not a multiple of
+// the row chunk, a batch not a multiple of the batch tile) are masked in
+// the kernel.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
-constexpr int ICH = 8;  // output rows per thread
-constexpr int TS = 32;  // sites per thread block (one warp wide)
-constexpr int JS = 8;   // slices of the j sum per thread block
+namespace cg = cooperative_groups;
 
-// one compressed block entry: (re, im) in bf16, 4 bytes
+// the batch-1 kernel
+constexpr int B1_WIDE = 2048;           // sites from which a tile has 32 sites, not 16
+constexpr int B1_WARPS = 8;             // warps per thread block, at most
+constexpr int B1_ICH = 4;               // output rows per row chunk
+constexpr int B1_UNROLL = 2;            // terms whose loads a thread issues together
+constexpr int B1_SLOT_TERMS = 4;        // terms per term slot, at least
+constexpr long long B1_THREADS = 1 << 16;  // threads of a grid, about
+
+// the multi-right-hand-side kernel: TS sites per tile and, by field
+// precision, a per-thread register tile of RI rows x RB right-hand sides,
+// WR x WB warps, JC values of j per stage, S stages in the ring
+constexpr int TS = 16;
+template <typename R>
+struct Mrhs;
+template <>
+struct Mrhs<float> {
+  static constexpr int RI = 7, RB = 7, WR = 2, WB = 4, JC = 8, S = 3;
+};
+template <>
+struct Mrhs<double> {
+  static constexpr int RI = 7, RB = 2, WR = 2, WB = 4, JC = 8, S = 2;
+};
+constexpr int MAX_SPLITS = 8;  // blocks of a cluster that share one tile's term sum
+
+// one compressed block entry: (re, im) in bf16, re in the low half
 struct alignas(4) bf16x2 {
-  __nv_bfloat16 re, im;
+  unsigned int w;
 };
 
 // a block entry as a complex number of the field's precision
@@ -79,7 +142,18 @@ __device__ __forceinline__ cplx<R> widen(cplx<R> b) {
 }
 
 __device__ __forceinline__ cplx<float> widen(bf16x2 b) {
-  return cx<float>(__bfloat162float(b.re), __bfloat162float(b.im));
+  return cx<float>(__uint_as_float(b.w << 16), __uint_as_float(b.w & 0xffff0000u));
+}
+
+// acc += a * b as four fused multiply-adds in this order: 4 instructions,
+// where common.cuh's cfma (kept by K1-K3) compiles to a product, a fused
+// multiply-add and an add for each part
+template <typename R>
+__device__ __forceinline__ void cmac(cplx<R>& acc, cplx<R> a, cplx<R> b) {
+  acc.re = fma(a.re, b.re, acc.re);
+  acc.re = fma(-a.im, b.im, acc.re);
+  acc.im = fma(a.re, b.im, acc.im);
+  acc.im = fma(a.im, b.re, acc.im);
 }
 
 // received faces of the sharded t (0) and z (1) axes; nullptr = unsharded
@@ -89,106 +163,469 @@ struct Halo {
   const cplx<R>* bwd[2];  // v(x - mu) for the slab's first mu slice
 };
 
-// B: the storage of a block entry, cplx<R> or (R = float only) bf16x2
-template <typename R, bool HALO, typename B>
-__global__ void __launch_bounds__(TS * JS) coarse_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ v,
-                                                        const B* __restrict__ blocks, Halo<R> h, Lattice L,
-                                                        int V, int d, int k0, int k1, int4 mblk, int parity,
-                                                        int parity_offset, int batch) {
-  __shared__ cplx<R> part[JS][ICH][TS];
-  int tile = blockIdx.x / batch;
-  int b = blockIdx.x - tile * batch;
-  int tx = threadIdx.x, js = threadIdx.y;
-  int site = tile * TS + tx;
-  int i0 = blockIdx.y * ICH;
-  bool live = site < V;
-  int c[4] = {0, 0, 0, 0};
-  if (live) site_coords(L, site, c);
-  bool zero = !live || (parity >= 0 && ((c[0] + c[1] + c[2] + c[3] + parity_offset) & 1) != parity);
-  const int mb[4] = {mblk.x, mblk.y, mblk.z, mblk.w};
-  const cplx<R>* vb = v + (long long)b * d * V;
-  cplx<R> acc[ICH];
-#pragma unroll
-  for (int ii = 0; ii < ICH; ++ii) acc[ii] = cx<R>(0, 0);
+// where term k reads the field for one site: p -> entry (b, j = 0), ld =
+// the stride of j; p = nullptr where the term is dropped (masked hop, site
+// of the other parity, site outside the lattice)
+template <typename R>
+struct Src {
+  const cplx<R>* p;
+  int ld;
+};
 
-  if (!zero) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {  // unrolled: mu is a constant in each copy
-      if (k < k0 || k >= k1) continue;
-      int nb = site;
-      const cplx<R>* src = vb;
-      long long ld = V;  // stride of one dof row in src
-      if (k > 0) {
-        const int mu = (k - 1) & 3;
-        const bool fwd = k < 5;
-        if (mb[mu] > 0) {
-          int r = c[mu] % mb[mu];
-          if (fwd ? (r == mb[mu] - 1) : (r == 0)) continue;
-        }
-        nb = site_step(L, site, c, mu, fwd ? +1 : -1);
-        if (HALO && mu < 2) {
-          const cplx<R>* face = fwd ? h.fwd[mu] : h.bwd[mu];
-          if (face != nullptr && c[mu] == (fwd ? L.n[mu] - 1 : 0)) {
-            int fv = V / L.n[mu];
-            nb = mu == 0 ? site - c[0] * L.stride[0] : c[0] * L.stride[1] + site % L.stride[1];
-            src = face + (long long)b * d * fv;
-            ld = fv;
-          }
-        }
-      }
-      const B* Bk = blocks + (long long)k * d * d * V;
-      for (int j = js; j < d; j += JS) {
-        cplx<R> vj = src[(long long)j * ld + nb];
-        const B* Bj = Bk + ((long long)j * d + i0) * V + site;
-#pragma unroll
-        for (int ii = 0; ii < ICH; ++ii)
-          if (i0 + ii < d) cfma(acc[ii], widen(Bj[(long long)ii * V]), vj);
-      }
+__device__ __forceinline__ bool dead_site(const Lattice& L, int site, int parity, int parity_offset) {
+  if (parity < 0) return false;
+  int c[4];
+  site_coords(L, site, c);
+  return ((c[0] + c[1] + c[2] + c[3] + parity_offset) & 1) != parity;
+}
+
+template <typename R, bool HALO>
+__device__ Src<R> term_source(const cplx<R>* v, const Halo<R>& h, const Lattice& L, int V, int d, int b, int site,
+                              int k, int4 mblk, int parity, int parity_offset) {
+  Src<R> s;
+  s.p = nullptr;
+  s.ld = V;
+  if (site >= V || dead_site(L, site, parity, parity_offset)) return s;
+  if (k == 0) {
+    s.p = v + (long long)b * d * V + site;
+    return s;
+  }
+  int c[4];
+  site_coords(L, site, c);
+  const int mu = (k - 1) & 3;
+  const bool fwd = k < 5;
+  const int mb = mu == 0 ? mblk.x : mu == 1 ? mblk.y : mu == 2 ? mblk.z : mblk.w;
+  if (mb > 0) {
+    const int r = c[mu] % mb;
+    if (fwd ? (r == mb - 1) : (r == 0)) return s;
+  }
+  if (HALO && mu < 2) {
+    const cplx<R>* face = fwd ? h.fwd[mu] : h.bwd[mu];
+    if (face != nullptr && c[mu] == (fwd ? L.n[mu] - 1 : 0)) {
+      const int fv = V / L.n[mu];
+      const int nb = mu == 0 ? site - c[0] * L.stride[0] : c[0] * L.stride[1] + site % L.stride[1];
+      s.p = face + (long long)b * d * fv + nb;
+      s.ld = fv;
+      return s;
     }
   }
-#pragma unroll
-  for (int ii = 0; ii < ICH; ++ii) part[js][ii][tx] = acc[ii];
+  s.p = v + (long long)b * d * V + site_step(L, site, c, mu, fwd ? +1 : -1);
+  return s;
+}
+
+// N bytes of block storage loaded by one instruction
+template <int N>
+struct Raw;
+template <>
+struct Raw<4> {
+  using T = unsigned int;
+};
+template <>
+struct Raw<8> {
+  using T = uint2;
+};
+template <>
+struct Raw<16> {
+  using T = uint4;
+};
+
+template <typename B, typename T>
+__device__ __forceinline__ B entry(const T& raw, int e) {
+  B x;
+  memcpy(&x, reinterpret_cast<const char*>(&raw) + e * sizeof(B), sizeof(B));
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// 1. one right-hand side per thread block
+//
+// Block x = (tile * gy + y) * batch + b (the batch fastest, so the blocks
+// of one tile run together and share its block entries through L2): site
+// tile `tile` of right-hand side b, row chunks y, y + gy, ... of B1_ICH
+// rows.  Thread (lane, warp): p = lane % PL picks SV consecutive sites of
+// the tile (one load of SV entries), g = lane / PL and the warp pick the
+// term slot q; slot q sums the terms t = q, q + Q, ... of the flattened
+// (k, j) range, Q = G * blockDim.y.
+template <typename R, bool HALO, typename B, int SV, int TS1>
+__global__ void __launch_bounds__(32 * B1_WARPS)
+    coarse_b1_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ v, const B* __restrict__ blocks,
+                     Halo<R> h, Lattice L, int V, int d, int k0, int k1, int4 mblk, int parity, int parity_offset,
+                     int batch, int gy) {
+  constexpr int PL = TS1 / SV;  // lanes along the tile's sites
+  constexpr int G = 32 / PL;   // term slots per warp
+  using T = typename Raw<sizeof(B) * SV>::T;
+  __shared__ Src<R> tab[9 * TS1];
+  __shared__ cplx<R> part[B1_WARPS][B1_ICH][TS1];
+  const int b = blockIdx.x % batch, r = blockIdx.x / batch;
+  const int site0 = (r / gy) * TS1;
+  const int nk = k1 - k0, nw = blockDim.y, nthr = 32 * nw, tid = threadIdx.y * 32 + threadIdx.x;
+  for (int e = tid; e < nk * TS1; e += nthr)
+    tab[e] = term_source<R, HALO>(v, h, L, V, d, b, site0 + e % TS1, k0 + e / TS1, mblk, parity, parity_offset);
   __syncthreads();
-  // JS * TS threads finish ICH * TS outputs: thread (tx, js) sums rows
-  // ii = js, js + JS, ... of site tx over the JS slices in order
-  if (!live) return;
-  cplx<R>* o = out + (long long)b * d * V;
-  for (int ii = js; ii < ICH; ii += JS) {
-    if (i0 + ii >= d) continue;
-    cplx<R> s = part[0][ii][tx];
+
+  const int lane = threadIdx.x, w = threadIdx.y;
+  const int p = lane % PL, g = lane / PL, s0 = p * SV, Q = G * nw;
+  const int nt = nk * d;
+  const bool dead = site0 + tid % TS1 < V && dead_site(L, site0 + tid % TS1, parity, parity_offset);
+  for (int i0 = (r % gy) * B1_ICH; i0 < d; i0 += gy * B1_ICH) {
+    cplx<R> acc[B1_ICH][SV];
 #pragma unroll
-    for (int q = 1; q < JS; ++q) s = cadd(s, part[q][ii][tx]);
-    o[(long long)(i0 + ii) * V + site] = s;
+    for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+      for (int e = 0; e < SV; ++e) acc[ii][e] = cx<R>(0, 0);
+    const int nrow = min(B1_ICH, d - i0);
+    // term t = kk * d + j starts at row (t * d + i0) * V of blocks[k0]
+    const B* base = blocks + ((long long)k0 * d * d + i0) * V + site0 + s0;
+    for (int t0 = w * G + g; t0 < nt; t0 += B1_UNROLL * Q) {
+      T raw[B1_UNROLL][B1_ICH];
+      cplx<R> vj[B1_UNROLL][SV];
+#pragma unroll
+      for (int u = 0; u < B1_UNROLL; ++u) {
+        const int t = t0 + u * Q;
+        const int kk = t / d, j = t - kk * d;
+        bool any = false;
+#pragma unroll
+        for (int e = 0; e < SV; ++e) {
+          vj[u][e] = cx<R>(0, 0);
+          if (t < nt) {
+            const Src<R> s = tab[kk * TS1 + s0 + e];
+            if (s.p != nullptr) {
+              vj[u][e] = s.p[(long long)j * s.ld];
+              any = true;
+            }
+          }
+        }
+        const T* row = reinterpret_cast<const T*>(base + (long long)t * d * V);
+#pragma unroll
+        for (int ii = 0; ii < B1_ICH; ++ii) {
+          raw[u][ii] = T{};
+          if (any && ii < nrow) raw[u][ii] = __ldg(row + (long long)ii * V / SV);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B1_UNROLL; ++u)
+#pragma unroll
+        for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+          for (int e = 0; e < SV; ++e) cmac(acc[ii][e], widen(entry<B>(raw[u][ii], e)), vj[u][e]);
+    }
+
+    // lanes of one site vector and different slots: a fixed butterfly
+#pragma unroll
+    for (int off = PL; off < 32; off <<= 1)
+#pragma unroll
+      for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+        for (int e = 0; e < SV; ++e) {
+          acc[ii][e].re += __shfl_xor_sync(0xffffffffu, acc[ii][e].re, off);
+          acc[ii][e].im += __shfl_xor_sync(0xffffffffu, acc[ii][e].im, off);
+        }
+    if (g == 0)
+#pragma unroll
+      for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+        for (int e = 0; e < SV; ++e) part[w][ii][s0 + e] = acc[ii][e];
+    __syncthreads();
+    // then the warps in order (o % TS1 = tid % TS1: nthr is a multiple of TS1)
+    for (int o = tid; o < B1_ICH * TS1; o += nthr) {
+      const int ii = o / TS1, s = o % TS1, i = i0 + ii, site = site0 + s;
+      if (i < d && site < V) {
+        cplx<R> sum = part[0][ii][s];
+        for (int q = 1; q < nw; ++q) sum = cadd(sum, part[q][ii][s]);
+        out[((long long)b * d + i) * V + site] = dead ? cx<R>(0, 0) : sum;
+      }
+    }
+    __syncthreads();  // part is rewritten by the next row chunk
   }
+}
+
+// ---------------------------------------------------------------------------
+// 2. a tile of right-hand sides per thread block
+
+// cp.async of N bytes (4, 8 or 16); a copy that is not `valid` zero-fills
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  const int n = valid ? N : 0;
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename R, typename B>
+constexpr size_t mrhs_smem() {
+  using C = Mrhs<R>;
+  constexpr int IC = 2 * C::WR * C::RI, BT = C::WB * C::RB;
+  return 9 * TS * sizeof(Src<R>) +
+         C::S * ((size_t)C::JC * IC * TS * sizeof(B) + (size_t)BT * C::JC * TS * sizeof(cplx<R>));
+}
+
+// Block x = ((tile * nic + ic) * nbt + bt) * splits + split.  Lane l of warp
+// w: site l % 16, rows ((w % WR) * 2 + l / 16) * RI + [0, RI), right-hand
+// sides (w / WR) * RB + [0, RB).  VEC: blocks copied 16 bytes at a time
+// (V a multiple of the entries in 16 bytes), else one entry at a time.
+template <typename R, bool HALO, typename B, bool VEC>
+__global__ void __launch_bounds__(32 * Mrhs<R>::WR * Mrhs<R>::WB, 1)
+    coarse_mrhs_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ v, const B* __restrict__ blocks,
+                       Halo<R> h, Lattice L, int V, int d, int k0, int k1, int4 mblk, int parity,
+                       int parity_offset, int batch, int splits) {
+  using C = Mrhs<R>;
+  constexpr int RI = C::RI, RB = C::RB, JC = C::JC, S = C::S;
+  constexpr int IC = 2 * C::WR * RI, BT = C::WB * RB, NT = 32 * C::WR * C::WB;
+  constexpr int BST = JC * IC * TS, VST = BT * JC * TS;  // entries of one stage
+  constexpr int VPASS = NT / (JC * TS);                  // right-hand sides per gather pass
+  static_assert(NT % (JC * TS) == 0, "the field gather covers whole (j, site) planes");
+  static_assert((size_t)IC * BT * TS * sizeof(cplx<R>) <= (size_t)S * (BST * sizeof(B) + VST * sizeof(cplx<R>)),
+                "the cluster reduction reuses the ring");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Src<R>* tab = reinterpret_cast<Src<R>*>(smem);
+  B* Bs = reinterpret_cast<B*>(smem + 9 * TS * sizeof(Src<R>));
+  cplx<R>* Vs = reinterpret_cast<cplx<R>*>(Bs + S * BST);
+
+  const int tid = threadIdx.x;
+  const int nbt = (batch + BT - 1) / BT, nic = (d + IC - 1) / IC;
+  int x = blockIdx.x;
+  const int split = x % splits;
+  x /= splits;
+  const int b0 = (x % nbt) * BT;
+  x /= nbt;
+  const int i0 = (x % nic) * IC, site0 = (x / nic) * TS;
+  const int nk = k1 - k0, nJ = (d + JC - 1) / JC, total = nk * nJ;
+  const int st0 = (int)((long long)total * split / splits), st1 = (int)((long long)total * (split + 1) / splits);
+  for (int e = tid; e < nk * TS; e += NT)
+    tab[e] = term_source<R, HALO>(v, h, L, V, d, 0, site0 + e % TS, k0 + e / TS, mblk, parity, parity_offset);
+  __syncthreads();
+
+  // stage it -> slot (it - st0) % S: blocks[k][j0 + jj][i0 + ii][tile] and
+  // v[b0 + bb][j0 + jj][n_k(tile)], zero outside the operands
+  auto issue = [&](int it) {
+    const int slot = (it - st0) % S;
+    const int kk = it / nJ, j0 = (it - kk * nJ) * JC;
+    B* bs = Bs + slot * BST;
+    const B* bk = blocks + (long long)(k0 + kk) * d * d * V + site0;
+    if constexpr (VEC) {
+      constexpr int EPC = 16 / sizeof(B), CPR = TS / EPC;  // entries per copy, copies per row
+      for (int c = tid; c < JC * IC * CPR; c += NT) {
+        const int row = c / CPR, cc = c - row * CPR, jj = row / IC, ii = row - jj * IC;
+        const bool ok = j0 + jj < d && i0 + ii < d && site0 + cc * EPC < V;
+        const B* src = bk + ((long long)(j0 + jj) * d + i0 + ii) * V + cc * EPC;
+        cp_async<16>(bs + row * TS + cc * EPC, ok ? src : blocks, ok);
+      }
+    } else {
+      for (int c = tid; c < JC * IC * TS; c += NT) {
+        const int row = c / TS, s = c - row * TS, jj = row / IC, ii = row - jj * IC;
+        const bool ok = j0 + jj < d && i0 + ii < d && site0 + s < V;
+        const B* src = bk + ((long long)(j0 + jj) * d + i0 + ii) * V + s;
+        cp_async<sizeof(B)>(bs + c, ok ? src : blocks, ok);
+      }
+    }
+    // each thread gathers one (j, site) of every VPASS-th right-hand side
+    const int s = tid % TS, jj = (tid / TS) % JC;
+    const Src<R> src = tab[kk * TS + s];
+    const bool okj = src.p != nullptr && j0 + jj < d;
+    const long long step = (long long)VPASS * d * src.ld;
+    const cplx<R>* g = okj ? src.p + ((long long)(b0 + tid / (TS * JC)) * d + j0 + jj) * src.ld : v;
+    cplx<R>* dst = Vs + slot * VST + jj * TS + s;
+    for (int bb = tid / (TS * JC); bb < BT; bb += VPASS, g += okj ? step : 0) {
+      const bool ok = okj && b0 + bb < batch;
+      cp_async<sizeof(cplx<R>)>(dst + bb * JC * TS, ok ? g : v, ok);
+    }
+  };
+
+  for (int st = 0; st < S - 1; ++st) {
+    if (st0 + st < st1) issue(st0 + st);
+    cp_async_commit();
+  }
+  const int lane = tid & 31, w = tid >> 5, s = lane & 15;
+  const int rowbase = ((w % C::WR) * 2 + (lane >> 4)) * RI, rhsbase = (w / C::WR) * RB;
+  cplx<R> acc[RI][RB];
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RB; ++c) acc[r][c] = cx<R>(0, 0);
+  for (int it = st0; it < st1; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage it has landed; slot (it - 1) is free
+    if (it + S - 1 < st1) issue(it + S - 1);
+    cp_async_commit();
+    const int slot = (it - st0) % S;
+    const B* bs = Bs + slot * BST + rowbase * TS + s;
+    const cplx<R>* vs = Vs + slot * VST + rhsbase * JC * TS + s;
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj) {
+      cplx<R> bv[RI], vv[RB];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) bv[r] = widen(bs[(jj * IC + r) * TS]);
+#pragma unroll
+      for (int c = 0; c < RB; ++c) vv[c] = vs[(c * JC + jj) * TS];
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < RB; ++c) cmac(acc[r][c], bv[r], vv[c]);
+    }
+  }
+
+  const int site = site0 + s;
+  if (splits == 1) {
+    if (site >= V) return;
+    const bool dead = dead_site(L, site, parity, parity_offset);
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RB; ++c) {
+        const int i = i0 + rowbase + r, b = b0 + rhsbase + c;
+        if (i < d && b < batch) out[((long long)b * d + i) * V + site] = dead ? cx<R>(0, 0) : acc[r][c];
+      }
+    return;
+  }
+  // the blocks of a cluster hold partial sums of one tile: each writes its
+  // tile into its ring, and block `split` sums a 1 / splits share of the
+  // tile over the cluster's blocks in rank order
+  cp_async_wait<0>();
+  __syncthreads();
+  cplx<R>* red = reinterpret_cast<cplx<R>*>(Bs);  // [IC][BT][TS]
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RB; ++c) red[((rowbase + r) * BT + rhsbase + c) * TS + s] = acc[r][c];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int N = IC * BT * TS;
+  const int per = (N + splits - 1) / splits, e1 = min(N, (split + 1) * per);
+  for (int e = split * per + tid; e < e1; e += NT) {
+    const int ii = e / (BT * TS), bb = (e / TS) % BT, ss = e % TS;
+    const int i = i0 + ii, b = b0 + bb, st = site0 + ss;
+    if (i >= d || b >= batch || st >= V) continue;
+    cplx<R> sum = *cluster.map_shared_rank(red + e, 0);
+    for (int r = 1; r < splits; ++r) sum = cadd(sum, *cluster.map_shared_rank(red + e, r));
+    out[((long long)b * d + i) * V + st] = dead_site(L, st, parity, parity_offset) ? cx<R>(0, 0) : sum;
+  }
+  cluster.sync();  // no block leaves while another still reads its ring
 }
 
 namespace {
 
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// tile: 16 sites, 32 from B1_WIDE sites on; warps: 8, fewer where a term
+// slot would get fewer than B1_SLOT_TERMS terms; row-chunk groups gy: as
+// many as keep the grid near B1_THREADS threads (each block loops over
+// nic / gy row chunks with one table)
+template <typename R, bool HALO, typename B, int SV, int TS1>
+int launch_b1_tiles(void* out, const void* v, const void* blocks, Halo<R> h, Lattice L, int V, int d, int k0,
+                    int k1, int4 mb, int parity, int parity_offset, int batch, cudaStream_t stream) {
+  constexpr int G = 32 / (TS1 / SV);
+  const int nt = (k1 - k0) * d, nic = (d + B1_ICH - 1) / B1_ICH;
+  int nw = B1_WARPS;
+  while (nw > 1 && nt < B1_SLOT_TERMS * G * nw) nw /= 2;
+  const long long per_group = (long long)((V + TS1 - 1) / TS1) * batch * 32 * nw;
+  const int gy = (int)std::max(1LL, std::min((long long)nic, B1_THREADS / per_group));
+  const long long blocks_x = per_group / (32 * nw) * gy;
+  coarse_b1_kernel<R, HALO, B, SV, TS1><<<dim3((unsigned)blocks_x), dim3(32, nw), 0, stream>>>(
+      (cplx<R>*)out, (const cplx<R>*)v, (const B*)blocks, h, L, V, d, k0, k1, mb, parity, parity_offset, batch,
+      gy);
+  return (int)cudaGetLastError();
+}
+
+template <typename R, bool HALO, typename B, int SV>
+int launch_b1(void* out, const void* v, const void* blocks, Halo<R> h, Lattice L, int V, int d, int k0, int k1,
+              int4 mb, int parity, int parity_offset, int batch, cudaStream_t stream) {
+  return V >= B1_WIDE ? launch_b1_tiles<R, HALO, B, SV, 32>(out, v, blocks, h, L, V, d, k0, k1, mb, parity,
+                                                            parity_offset, batch, stream)
+                      : launch_b1_tiles<R, HALO, B, SV, 16>(out, v, blocks, h, L, V, d, k0, k1, mb, parity,
+                                                            parity_offset, batch, stream);
+}
+
+template <typename R, bool HALO, typename B, bool VEC>
+int launch_mrhs(void* out, const void* v, const void* blocks, Halo<R> h, Lattice L, int V, int d, int k0, int k1,
+                int4 mb, int parity, int parity_offset, int batch, cudaStream_t stream) {
+  using C = Mrhs<R>;
+  constexpr int IC = 2 * C::WR * C::RI, BT = C::WB * C::RB, NT = 32 * C::WR * C::WB;
+  constexpr size_t smem = mrhs_smem<R, B>();
+  auto kernel = coarse_mrhs_kernel<R, HALO, B, VEC>;
+  static bool ready = false;  // once per instance: shared memory above 48 KB
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const long long tiles = (long long)((V + TS - 1) / TS) * ((d + IC - 1) / IC) * ((batch + BT - 1) / BT);
+  const int stages = (k1 - k0) * ((d + C::JC - 1) / C::JC);
+  // on a grid of at most half as many blocks as SMs (4^4 lattices), split
+  // the term sum over a cluster while the grid has fewer blocks than SMs
+  int splits = 1;
+  if (tiles * 2 <= num_sms())
+    while (splits < MAX_SPLITS && tiles * splits < num_sms() && stages >= 2 * splits * C::S) splits *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * splits));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, (cplx<R>*)out, (const cplx<R>*)v, (const B*)blocks, h, L, V, d, k0,
+                                 k1, mb, parity, parity_offset, batch, splits);
+}
+
+// the smallest batch for which the multi-right-hand-side kernel is used,
+// on lattices of B1_WIDE sites or more and below (the batch-1 kernel costs
+// about batch times its batch-1 time, the multi kernel about its time at 28)
+constexpr int MRHS_MIN_BATCH_WIDE = 6, MRHS_MIN_BATCH = 12;
+
+// regime: 0 = by batch, 1 = the batch-1 kernel, 2 = the multi-right-hand-side kernel
 template <typename R, bool HALO, typename B>
 int launch_coarse(void* out, const void* v, const void* blocks, Halo<R> h, int d, int k0, int k1, int t, int z,
                   int y, int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch,
-                  void* stream) {
+                  int regime, void* stream) {
   Lattice L = make_lattice(t, z, y, x);
-  int V = t * z * y * x;
-  int tiles = (V + TS - 1) / TS;
-  dim3 grid((unsigned)(tiles * batch), (unsigned)((d + ICH - 1) / ICH));
-  dim3 block(TS, JS);
-  coarse_kernel<R, HALO, B><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (cplx<R>*)out, (const cplx<R>*)v, (const B*)blocks, h, L, V, d, k0, k1, make_int4(bt, bz, by, bx),
-      parity, parity_offset, batch);
-  return (int)cudaGetLastError();
+  const int V = t * z * y * x;
+  const int4 mb = make_int4(bt, bz, by, bx);
+  cudaStream_t st = (cudaStream_t)stream;
+  constexpr int SV = 16 / sizeof(B);  // entries in 16 bytes
+  const bool vec = V % SV == 0 && (uintptr_t)blocks % 16 == 0;
+  if (regime == 0) regime = batch >= (V >= B1_WIDE ? MRHS_MIN_BATCH_WIDE : MRHS_MIN_BATCH) ? 2 : 1;
+  if (regime == 2)
+    return vec ? launch_mrhs<R, HALO, B, true>(out, v, blocks, h, L, V, d, k0, k1, mb, parity, parity_offset,
+                                               batch, st)
+               : launch_mrhs<R, HALO, B, false>(out, v, blocks, h, L, V, d, k0, k1, mb, parity, parity_offset,
+                                                batch, st);
+  if (regime != 1) return (int)cudaErrorInvalidValue;
+  return vec ? launch_b1<R, HALO, B, SV>(out, v, blocks, h, L, V, d, k0, k1, mb, parity, parity_offset, batch, st)
+             : launch_b1<R, HALO, B, 1>(out, v, blocks, h, L, V, d, k0, k1, mb, parity, parity_offset, batch, st);
 }
 
 template <typename R, typename B>
 int launch_halo(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
                 const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x, int batch,
-                void* stream) {
+                int regime, void* stream) {
   Halo<R> h;
   h.fwd[0] = (const cplx<R>*)fwd_t;
   h.bwd[0] = (const cplx<R>*)bwd_t;
   h.fwd[1] = (const cplx<R>*)fwd_z;
   h.bwd[1] = (const cplx<R>*)bwd_z;
-  return launch_coarse<R, true, B>(out, v, blocks, h, d, k0, k1, t, z, y, x, 0, 0, 0, 0, -1, 0, batch, stream);
+  return launch_coarse<R, true, B>(out, v, blocks, h, d, k0, k1, t, z, y, x, 0, 0, 0, 0, -1, 0, batch, regime,
+                                   stream);
 }
 
 template <typename R>
@@ -204,50 +641,54 @@ extern "C" {
 
 // K4; blocks holds terms [0, K) of which [k0, k1) are applied; mask block
 // extents 0 = unmasked; parity -1 = all sites, parity_offset = the global
-// coordinate sum of site 0.  Returns cudaGetLastError().
+// coordinate sum of site 0; regime 0 = kernel chosen by batch, 1 = the
+// batch-1 kernel, 2 = the multi-right-hand-side kernel.  Returns
+// cudaGetLastError() (or the launch's error).
 int ddaamg_coarse_f32(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y,
-                      int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch,
+                      int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch, int regime,
                       void* stream) {
   return launch_coarse<float, false, cplx<float>>(out, v, blocks, no_halo<float>(), d, k0, k1, t, z, y, x, bt, bz,
-                                                  by, bx, parity, parity_offset, batch, stream);
+                                                  by, bx, parity, parity_offset, batch, regime, stream);
 }
 
 int ddaamg_coarse_f64(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y,
-                      int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch,
+                      int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch, int regime,
                       void* stream) {
   return launch_coarse<double, false, cplx<double>>(out, v, blocks, no_halo<double>(), d, k0, k1, t, z, y, x, bt,
-                                                    bz, by, bx, parity, parity_offset, batch, stream);
+                                                    bz, by, bx, parity, parity_offset, batch, regime, stream);
 }
 
 // K4-bf16: K4 on complex64 fields with blocks stored as bf16 (re, im) pairs.
 int ddaamg_coarse_bf16(void* out, const void* v, const void* blocks, int d, int k0, int k1, int t, int z, int y,
-                       int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch,
+                       int x, int bt, int bz, int by, int bx, int parity, int parity_offset, int batch, int regime,
                        void* stream) {
   return launch_coarse<float, false, bf16x2>(out, v, blocks, no_halo<float>(), d, k0, k1, t, z, y, x, bt, bz, by,
-                                             bx, parity, parity_offset, batch, stream);
+                                             bx, parity, parity_offset, batch, regime, stream);
 }
 
 // K5: terms [k0, k1) on one slab with the received faces of the sharded t
-// and z axes (nullptr for an unsharded axis).  Returns cudaGetLastError().
+// and z axes (nullptr for an unsharded axis); regime as for K4.  Returns
+// cudaGetLastError() (or the launch's error).
 int ddaamg_coarse_halo_f32(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
                            const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
-                           int batch, void* stream) {
+                           int batch, int regime, void* stream) {
   return launch_halo<float, cplx<float>>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
-                                         stream);
+                                         regime, stream);
 }
 
 int ddaamg_coarse_halo_f64(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
                            const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
-                           int batch, void* stream) {
+                           int batch, int regime, void* stream) {
   return launch_halo<double, cplx<double>>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
-                                           stream);
+                                           regime, stream);
 }
 
 // K5-bf16: K5 on complex64 fields with blocks stored as bf16 (re, im) pairs.
 int ddaamg_coarse_halo_bf16(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
                             const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
-                            int batch, void* stream) {
-  return launch_halo<float, bf16x2>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch, stream);
+                            int batch, int regime, void* stream) {
+  return launch_halo<float, bf16x2>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
+                                    regime, stream);
 }
 
 }  // extern "C"

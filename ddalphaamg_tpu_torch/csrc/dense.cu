@@ -23,7 +23,12 @@
 // upper half of an f32) and multiplied in f32 against x, which is small and
 // read through the read-only cache.  Each lane sums its entries in a fixed order,
 // and the warp's lanes meet in a fixed butterfly, so results do not depend
-// on scheduling.  m must be a multiple of 4 (16-byte aligned rows).
+// on scheduling.  Rows are 16-byte aligned only when m is a multiple of 4;
+// for any other m (an odd test-vector count) the launcher takes
+// dense_bf16_rows_kernel, the same design with one 4-byte entry per lane
+// and step.
+#include <cstdint>
+
 #include "common.cuh"
 
 constexpr int WARPS = 8;  // rows (warps) per thread block
@@ -34,6 +39,16 @@ __device__ __forceinline__ float bf16_lo(unsigned int w) {
 
 __device__ __forceinline__ float bf16_hi(unsigned int w) {
   return __uint_as_float(w & 0xffff0000u);
+}
+
+// the warp's lanes meet in a fixed butterfly; lane 0 writes y[row]
+__device__ __forceinline__ void warp_store(cplx<float>* y, long long row, float re, float im) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    re += __shfl_xor_sync(0xffffffffu, re, off);
+    im += __shfl_xor_sync(0xffffffffu, im, off);
+  }
+  if (threadIdx.x == 0) y[row] = cx<float>(re, im);
 }
 
 __global__ void __launch_bounds__(32 * WARPS)
@@ -57,12 +72,26 @@ __global__ void __launch_bounds__(32 * WARPS)
       im += ar * xv.y + ai * xv.x;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    re += __shfl_xor_sync(0xffffffffu, re, off);
-    im += __shfl_xor_sync(0xffffffffu, im, off);
+  warp_store(y, row, re, im);
+}
+
+// K6 for rows of any length m: 4-byte loads, 128 bytes per warp and step
+__global__ void __launch_bounds__(32 * WARPS)
+    dense_bf16_rows_kernel(cplx<float>* __restrict__ y, const float2* __restrict__ x,
+                           const unsigned int* __restrict__ A, int nb, int m) {
+  long long row = (long long)blockIdx.x * WARPS + threadIdx.y;  // b * m + i
+  if (row >= (long long)nb * m) return;
+  const float2* xb = x + row / m * m;
+  const unsigned int* Ar = A + row * m;
+  float re = 0.f, im = 0.f;
+  for (int q = threadIdx.x; q < m; q += 32) {
+    const unsigned int w = __ldg(Ar + q);
+    const float2 xv = __ldg(xb + q);
+    const float ar = bf16_lo(w), ai = bf16_hi(w);
+    re += ar * xv.x - ai * xv.y;
+    im += ar * xv.y + ai * xv.x;
   }
-  if (lane == 0) y[row] = cx<float>(re, im);
+  warp_store(y, row, re, im);
 }
 
 extern "C" {
@@ -72,8 +101,12 @@ int ddaamg_dense_bf16(void* y, const void* x, const void* A, int nb, int m, void
   long long rows = (long long)nb * m;
   dim3 grid((unsigned)((rows + WARPS - 1) / WARPS));
   dim3 block(32, WARPS);
-  dense_bf16_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((cplx<float>*)y, (const float2*)x,
-                                                               (const uint4*)A, nb, m);
+  if (m % 4 == 0 && (uintptr_t)A % 16 == 0)
+    dense_bf16_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((cplx<float>*)y, (const float2*)x,
+                                                                 (const uint4*)A, nb, m);
+  else
+    dense_bf16_rows_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((cplx<float>*)y, (const float2*)x,
+                                                                      (const unsigned int*)A, nb, m);
   return (int)cudaGetLastError();
 }
 

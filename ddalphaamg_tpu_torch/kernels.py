@@ -82,12 +82,12 @@ _SIGNATURES = {
     "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 14 + [_P],
-    "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 14 + [_P],
-    "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 8 + [_P],
-    "ddaamg_coarse_halo_f64": [_P] * 7 + [_I] * 8 + [_P],
-    "ddaamg_coarse_bf16": [_P, _P, _P] + [_I] * 14 + [_P],
-    "ddaamg_coarse_halo_bf16": [_P] * 7 + [_I] * 8 + [_P],
+    "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 15 + [_P],
+    "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 15 + [_P],
+    "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "ddaamg_coarse_halo_f64": [_P] * 7 + [_I] * 9 + [_P],
+    "ddaamg_coarse_bf16": [_P, _P, _P] + [_I] * 15 + [_P],
+    "ddaamg_coarse_halo_bf16": [_P] * 7 + [_I] * 9 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _I, _I, _P],
 }
 

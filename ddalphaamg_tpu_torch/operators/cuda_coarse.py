@@ -9,6 +9,12 @@ the field's dtype (complex64 or complex128), or bf16 pairs [K, d, d, V, 2]
 (operators/coarse.compress) with complex64 fields.  Every other
 combination raises, complex128 fields with bf16 blocks included (the JAX
 package compresses only its f32 accelerator path).
+
+Each entry point holds two kernels (csrc/coarse.cu): one for a single
+right-hand side and one for a batch of them.  The C launcher picks one by
+the batch and the lattice size; `kernel="batch1"` or `kernel="multi"` names
+one instead (the kernel tests and the probe script run both on every
+shape; the port never does).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from .. import kernels
 from .coarse import coarse_apply_halo_plain, coarse_apply_plain
 
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64"}
+_REGIME = {None: 0, "batch1": 1, "multi": 2}
 
 
 def _instance(blocks, v) -> str:
@@ -56,12 +63,13 @@ def _check(blocks, v, lattice, terms, others=()):
 
 
 def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
-                 parity=None, parity_offset: int = 0):
+                 parity=None, parity_offset: int = 0, kernel=None):
     """K4: sum over the block terms [k0, k1) of blocks [K, d, d, V] applied
     to the neighbor fields of v; mask_block (bt, bz, by, bx) drops hops that
     cross a block face; parity 0/1 keeps only the sites of that parity
     (meaningful for the self term), counted on the global lattice whose
-    coordinate sum at local site 0 has the parity of parity_offset."""
+    coordinate sum at local site 0 has the parity of parity_offset; kernel
+    as in the module note."""
     lattice = tuple(lattice)
     k0, k1 = terms
     if parity is not None and (k0, k1) != (0, 1):
@@ -76,15 +84,16 @@ def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
     kernels.KERNELS["K4-bf16" if inst == "bf16" else "K4"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(), d, k0, k1,
             *lattice, *mb, -1 if parity is None else int(parity),
-            int(parity_offset) & 1, batch, kernels.stream_ptr(v.device))
+            int(parity_offset) & 1, batch, _REGIME[kernel], kernels.stream_ptr(v.device))
     kernels.check(rc, "coarse")
     return out
 
 
-def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9)):
+def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9), kernel=None):
     """K5: the terms [k0, k1) on one slab of a t/z-sharded lattice; halos =
     {mu: (fwd, bwd)} for the sharded axes mu in (0, 1), each face
-    [*batch, d, V / lattice[mu]] (operators/coarse.py describes them)."""
+    [*batch, d, V / lattice[mu]] (operators/coarse.py describes them);
+    kernel as in the module note."""
     lattice = tuple(lattice)
     if not halos or any(mu not in (0, 1) for mu in halos):
         raise ValueError(f"K5 takes faces of the t and/or z axes, got {sorted(halos)}")
@@ -104,6 +113,6 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9)):
     kernels.KERNELS["K5-bf16" if inst == "bf16" else "K5"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(),
             *ptr.get(0, none), *ptr.get(1, none), d, *terms, *lattice, batch,
-            kernels.stream_ptr(v.device))
+            _REGIME[kernel], kernels.stream_ptr(v.device))
     kernels.check(rc, "coarse halo")
     return out

@@ -34,8 +34,8 @@ def matvec(A, x):
     if x.device.type == "cpu":
         return matvec_plain(A, x)
     nb, m = x.shape
-    if A.shape != (nb, m, m, 2) or m % 4:
-        raise ValueError(f"K6 takes A [nb, m, m, 2] with m % 4 == 0 and x [nb, m], "
+    if A.shape != (nb, m, m, 2):
+        raise ValueError(f"K6 takes A [nb, m, m, 2] and x [nb, m], "
                          f"got {tuple(A.shape)} and {tuple(x.shape)}")
     if A.device != x.device or not (A.is_contiguous() and x.is_contiguous()):
         raise ValueError("A and x must be contiguous on one device")

@@ -136,7 +136,18 @@ def test_dense_bf16_matvec_matches_plain(cuda):
         assert _rel(cuda_dense.matvec(A, x), cuda_dense.matvec_plain(A, x)) < 1e-5
     with pytest.raises(ValueError):
         cuda_dense.matvec(coarse.compress(_cplx((1, 6, 6), gen, torch.complex64, cuda)),
-                          _cplx((1, 6), gen, torch.complex64, cuda))
+                          _cplx((1, 5), gen, torch.complex64, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [18, 90])
+def test_dense_bf16_matvec_unaligned_rows(cuda, m):
+    """K6 on rows that are not 16-byte aligned (m not a multiple of 4)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for nb in (1, 5):
+        A = coarse.compress(_cplx((nb, m, m), gen, torch.complex64, cuda))
+        x = _cplx((nb, m), gen, torch.complex64, cuda)
+        assert _rel(cuda_dense.matvec(A, x), cuda_dense.matvec_plain(A, x)) < 1e-5
 
 
 @pytest.mark.gpu
@@ -150,6 +161,109 @@ def test_coarse_parity_offset_matches_plain(cuda):
         got = cuda_coarse.coarse_apply(Pk, v, lat, (0, 1), parity=ODD, parity_offset=off)
         want = coarse.coarse_apply_plain(Pk, v, lat, (0, 1), parity=ODD, parity_offset=off)
         assert _rel(got, want) < TOL[torch.complex64], off
+
+
+# every shape class of the two coarse kernels: V a multiple of the 16-site
+# tile, V odd (entry-sized copies), V = 24 (a partial tile; bf16 rows not
+# 16-byte aligned); d a multiple of neither the 28-row chunk nor the 8-value
+# j stage (20), of the stage only (24), the rough16 width (56); batches
+# around the 28-wide right-hand-side tile and the launcher's switch (12 on
+# small lattices);
+# tiny lattices also take the cluster split of the term sum
+SHAPE_LATTICES = [(4, 4, 2, 4), (3, 3, 3, 3), (2, 2, 2, 3)]
+SHAPE_DOFS = [20, 24, 56]
+SHAPE_BATCHES = [1, 2, 3, 7, 12, 28, 29, 256]
+BLOCK_KINDS = ["f32", "f64", "bf16"]
+TERM_CASES = [((0, 9), None, None), ((1, 9), None, None), ((0, 9), (2, 2, 2, 2), None),
+              ((1, 9), (2, 2, 2, 2), None), ((0, 1), None, None), ((0, 1), None, ODD)]
+KERNELS = [None, "batch1", "multi"]     # the launcher's choice, then each kernel
+
+
+def _blocks(kind, shape, gen, device):
+    """Random blocks of one kind and the field dtype they apply to."""
+    dtype = torch.complex128 if kind == "f64" else torch.complex64
+    Pk = _cplx(shape, gen, dtype, device)
+    return (coarse.compress(Pk) if kind == "bf16" else Pk), dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", SHAPE_BATCHES)
+@pytest.mark.parametrize("d", SHAPE_DOFS)
+@pytest.mark.parametrize("lat", SHAPE_LATTICES)
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+def test_coarse_kernels_every_shape(cuda, kind, lat, d, batch):
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    Pk, dtype = _blocks(kind, (9, d, d, V), gen, cuda)
+    v = _cplx((batch, d, V), gen, dtype, cuda)
+    for terms, mask, parity in TERM_CASES:
+        if mask is not None and any(n % m for n, m in zip(lat, mask)):
+            continue
+        want = coarse.coarse_apply_plain(Pk, v, lat, terms, mask, parity)
+        for kernel in KERNELS:
+            got = cuda_coarse.coarse_apply(Pk, v, lat, terms, mask, parity, kernel=kernel)
+            assert _rel(got, want) < TOL[dtype], (terms, mask, parity, kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 28])
+@pytest.mark.parametrize("lat", [(8, 4, 8, 8), (5, 5, 9, 11)])
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+def test_coarse_kernels_wide_tiles(cuda, kind, lat, batch):
+    """Lattices of 2048 sites and more, where the batch-1 kernel takes
+    32-site tiles (V = 2475 is odd: entry-sized loads)."""
+    d, V = 24, int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    Pk, dtype = _blocks(kind, (9, d, d, V), gen, cuda)
+    v = _cplx((batch, d, V), gen, dtype, cuda)
+    for terms, mask, parity in [((0, 9), None, None), ((1, 9), None, None), ((0, 1), None, ODD)]:
+        want = coarse.coarse_apply_plain(Pk, v, lat, terms, mask, parity)
+        for kernel in KERNELS:
+            got = cuda_coarse.coarse_apply(Pk, v, lat, terms, mask, parity, kernel=kernel)
+            assert _rel(got, want) < TOL[dtype], (terms, parity, kernel)
+
+
+def _faces(lat, axes, batch, d, gen, dtype, device):
+    V = int(np.prod(lat))
+    return {mu: tuple(_cplx((batch, d, V // lat[mu]), gen, dtype, device) for _ in range(2))
+            for mu in axes}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", SHAPE_BATCHES)
+@pytest.mark.parametrize("axes", [(0,), (1,), (0, 1)])
+@pytest.mark.parametrize("lat", [(4, 2, 2, 4), (3, 3, 3, 3)])
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+def test_coarse_halo_kernels_every_batch(cuda, kind, lat, axes, batch):
+    d = 20
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    Pk, dtype = _blocks(kind, (9, d, d, int(np.prod(lat))), gen, cuda)
+    v = _cplx((batch, d, int(np.prod(lat))), gen, dtype, cuda)
+    halos = _faces(lat, axes, batch, d, gen, dtype, cuda)
+    for terms in [(0, 9), (1, 9)]:
+        want = coarse.coarse_apply_halo_plain(Pk, v, lat, halos, terms)
+        for kernel in KERNELS:
+            got = cuda_coarse.coarse_apply_halo(Pk, v, lat, halos, terms, kernel=kernel)
+            assert _rel(got, want) < TOL[dtype], (terms, kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+def test_coarse_kernels_are_deterministic(cuda, kind, kernel):
+    """Two launches on the same inputs give the same bits (no atomics; the
+    4^4 lattice at batch 28 takes the cluster split of the term sum)."""
+    lat, d = (4, 4, 4, 4), 56
+    V = int(np.prod(lat))
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    Pk, dtype = _blocks(kind, (9, d, d, V), gen, cuda)
+    for batch in (1, 28):
+        v = _cplx((batch, d, V), gen, dtype, cuda)
+        halos = _faces(lat, (0, 1), batch, d, gen, dtype, cuda)
+        for run in (lambda: cuda_coarse.coarse_apply(Pk, v, lat, kernel=kernel),
+                    lambda: cuda_coarse.coarse_apply(Pk, v, lat, (0, 9), (2, 2, 2, 2), kernel=kernel),
+                    lambda: cuda_coarse.coarse_apply_halo(Pk, v, lat, halos, kernel=kernel)):
+            assert torch.equal(run(), run())
 
 
 SMALL = """configuration: none
