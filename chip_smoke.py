@@ -9,7 +9,13 @@ Phases, one result line each (or a few), in order:
   2. build    compile csrc/*.cu for sm_90a, one nvcc per source, all started
               together (timed)
   3. kernels  every hand-written kernel against its plain PyTorch version on
-              the card at the shapes of the rough16 solve (16^4 fine level;
+              the card at the shapes of the rough16 solve (16^4 fine level:
+              K1 at batch 1, 28 and 56 (the Galerkin build), K2 on block
+              links on all sites and on the odd sites (the SAP's block
+              odd-even solve) at batch 1 and 28 and on the Galerkin build's
+              face links at batch 56, K3 with the clover and with the
+              odd-site inverse from its compact storage, also of a slab at
+              an odd global offset (parity_offset 1);
               8^4 and 4^4 coarse levels with d = 56; K5 on rank 0's slab
               of the 8^4 level on the (1, 2, 1, 1) mesh, (8, 4, 8, 8) with z
               faces, and on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and
@@ -68,7 +74,8 @@ Phases, one result line each (or a few), in order:
 
 The second-to-last lines are a JSON summary of the kernels (launches of
 K1-K4 from phase 4, K5 from phase 5, K4-bf16 and K6 from phase 7, K5-bf16
-from phase 8) and the card's nvidia-smi line; the last line is
+from phase 8; the times of the first case and, under "cases", of every
+case of phase 3) and the card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before that
 line; so does a machine without CUDA.
 """
@@ -89,6 +96,7 @@ INI = os.path.join(HERE, "bench_assets", "rough16.ini")
 PLAQ = 1.7878261039088
 TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
 BATCHES = (1, 28)
+GALERKIN_BATCH = 56       # 2N basis fields of the fine-level Galerkin build
 # published H100 SXM rates (NVIDIA data sheet): memory, and dense
 # non-tensor-core arithmetic in f32 and f64
 MEM_BYTES_PER_S = 3.35e12
@@ -145,9 +153,10 @@ def nbytes(*tensors):
 
 
 def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=None):
-    """One kernel-vs-plain check; keeps the worst error per kernel and the
-    numbers of the first (batch 1, main-path dtype) case.  work = (bytes,
-    operations) the function needs on these inputs."""
+    """One kernel-vs-plain check; keeps the worst error per kernel, the
+    numbers of the first (batch 1, main-path dtype) case, and every case's
+    numbers under "cases".  work = (bytes, operations) the function needs on
+    these inputs."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
@@ -169,11 +178,23 @@ def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=No
           f"{100 * bound_ms / ms:5.1f} %)  {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
         fail(f"{label}: relative error {rel:.3e} above {tol:.0e}")
-    r = results.setdefault(key, {"max_abs_err": 0.0})
+    r = results.setdefault(key, {"max_abs_err": 0.0, "cases": []})
     r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-    for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                   ("bound_by", bound_by), ("library_ms", lib_ms)):
+    case = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    for k, val in case.items():
         r.setdefault(k, val)
+    r["cases"].append(dict(case=label, max_abs_err=abs_err, **case))
+
+
+def galerkin_face_links(s, mu):
+    """The Galerkin build's face links of direction mu on rough16's 2^4
+    aggregates (mg/galerkin.build_coarse_operator)."""
+    from ddalphaamg_tpu_torch.mg.galerkin import _face_masks
+
+    up, _ = _face_masks(s.lattice, (2, 2, 2, 2), (0, 0, 0, 0))
+    face = torch.zeros_like(s.links)
+    face[mu] = s.links[mu] * torch.as_tensor(up[mu], dtype=s.even.dtype, device=s.device)
+    return face
 
 
 def coarse_pairs(lat, terms, mask, parity):
@@ -259,11 +280,26 @@ def spin_matrices(dtype, device):
     return S
 
 
-def dslash_library(links, phi, lat, clover=None):
+def dslash_work(key, phi, links=None, clover=None, parity=None):
+    """(bytes, operations) of K1-K3 on these inputs: the links and the
+    packed clover once (the clover's half at the sites of a parity), the
+    input field (half of it for a parity apply: the clover there reads the
+    sites of that parity, the hops the other's) and the output."""
+    half = 1 if parity is None else 2
+    V = phi.shape[-1]
+    batch = phi.numel() // (12 * V)
+    moved = (nbytes(links) if links is not None else 0) + nbytes(phi) + nbytes(phi) // half
+    if clover is not None:
+        moved += nbytes(*clover) // half
+    return moved, DSLASH_FLOPS[key] * V * batch // half
+
+
+def dslash_library(links, phi, lat, clover=None, parity=None):
     """The library call for K1 (with clover = (cdiag, coff)) and K2: one
     torch.einsum over per-site 12 x 12 hop matrices (spin matrix (x) link,
     the backward ones at x - mu) and the neighbour fields stacked
-    beforehand, the clover as a ninth, self term; returns a function of no
+    beforehand, the clover as a ninth, self term, the matrices zeroed at
+    the other parity's sites for a parity apply; returns a function of no
     arguments."""
     from ddalphaamg_tpu_torch.operators import fast
 
@@ -284,21 +320,26 @@ def dslash_library(links, phi, lat, clover=None):
         c12[:6, :6], c12[6:, 6:] = dense[0], dense[1]
         mats.append(c12)
         fields.append(phi)
+    H = torch.stack(mats, dim=-1)
+    if parity is not None:
+        H = H * fast.parity_mask(lat, parity, H.real.dtype, H.device)[:, None]
     # stored [x, i, j, k] and [x, j, k, b]: no copy inside the einsum
-    H = torch.stack(mats, dim=-1).permute(2, 0, 1, 3).contiguous().permute(3, 1, 2, 0)
+    H = H.permute(2, 0, 1, 3).contiguous().permute(3, 1, 2, 0)
     stack = torch.stack(fields, dim=-1).permute(2, 1, 3, 0).contiguous().permute(3, 2, 1, 0)
     return lambda: torch.einsum("kijx,bkjx->bix", H, stack)
 
 
-def clover_library(cdiag, coff, phi, lat, parity=None):
-    """The library call for K3: one torch.einsum over the clover unpacked
-    beforehand into two dense 6 x 6 blocks per site (K3's plain version
-    minus the unpacking), with a parity zero at the other parity's sites."""
+def clover_library(cdiag, coff, phi, lat, parity=None, parity_offset=0):
+    """The library call for K3: one torch.einsum over the clover (full
+    storage) unpacked beforehand into two dense 6 x 6 blocks per site
+    (K3's plain version minus the unpacking), with a parity zero at the
+    other parity's sites."""
     from ddalphaamg_tpu_torch.operators import fast
 
     dense = fast.unpack_clover(cdiag, coff).to(phi.dtype)
     if parity is not None:
-        dense = dense * fast.parity_mask(lat, parity, dense.real.dtype, dense.device)
+        dense = dense * fast.parity_mask(lat, parity, dense.real.dtype, dense.device,
+                                         parity_offset)
     # stored [c, x, i, j] and [c, x, j, b]: no copy inside the einsum
     dense = dense.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     ph = phi.reshape(phi.shape[0], 2, 6, phi.shape[-1]).permute(1, 3, 2, 0).contiguous()
@@ -312,7 +353,7 @@ def check_kernels(results):
     from ddalphaamg_tpu_torch import io, utils
     from ddalphaamg_tpu_torch.geometry import Geometry
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
-    from ddalphaamg_tpu_torch.operators.stencil import ODD, WilsonStencilSoA
+    from ddalphaamg_tpu_torch.operators.stencil import ODD, WilsonStencilSoA, herm_inv
     from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
 
     dev = torch.device("cuda")
@@ -324,37 +365,49 @@ def check_kernels(results):
     op = WilsonOperator.from_gauge(torch.as_tensor(U, device=dev),
                                    params.m0, params.csw)
     geom = Geometry(lattice=lat, block=(2, 2, 2, 2))
+    inv = cuda_dslash.pack_clover(fast.clover_to_soa(herm_inv(op.clover)))   # every site
     for dtype in (torch.complex64, torch.complex128):
         s = WilsonStencilSoA.build(op, geom, dtype=dtype)
         tag = "f32" if dtype == torch.complex64 else "f64"
         V = s.geom.num_sites
-        for B in BATCHES:
+        for B in BATCHES + ((GALERKIN_BATCH,) if dtype == torch.complex64 else ()):
             phi = torch.randn((B, 12, V), generator=gen, dtype=dtype, device=dev)
             lab = f"{lat[0]}^4 {tag} batch {B}"
             compare(results, "K1", f"K1 full {lab}",
                     lambda: cuda_dslash.d_plus_clover(s.links, s.cdiag, s.coff, phi, lat),
                     lambda: fast.d_plus_clover_soa(s.links, s.cdiag, s.coff, phi, lat),
-                    dtype, (nbytes(s.links, s.cdiag, s.coff) + 2 * nbytes(phi),
-                            DSLASH_FLOPS["K1"] * V * B),
+                    dtype, dslash_work("K1", phi, s.links, (s.cdiag, s.coff)),
                     dslash_library(s.links, phi, lat, (s.cdiag, s.coff)))
             if dtype != torch.complex64:
                 continue
-            compare(results, "K2", f"K2 hop (block links) {lab}",
-                    lambda: cuda_dslash.hopping(s.links_intra, phi, lat),
-                    lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat), dtype,
-                    (nbytes(s.links_intra) + 2 * nbytes(phi), DSLASH_FLOPS["K2"] * V * B),
-                    dslash_library(s.links_intra, phi, lat))
+            if B == GALERKIN_BATCH:    # the Galerkin build's face hops (mg/galerkin.py)
+                face = galerkin_face_links(s, 0)
+                compare(results, "K2", f"K2 hop (face links t, all sites) {lab}",
+                        lambda: cuda_dslash.hopping(face, phi, lat),
+                        lambda: fast.dslash_hopping_soa(face, phi, lat), dtype,
+                        dslash_work("K2", phi, face), dslash_library(face, phi, lat))
+                continue
+            for parity, sites in ((None, "all sites"), (ODD, "odd sites")):
+                compare(results, "K2", f"K2 hop (block links, {sites}) {lab}",
+                        lambda: cuda_dslash.hopping(s.links_intra, phi, lat, parity),
+                        lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat, parity), dtype,
+                        dslash_work("K2", phi, s.links_intra, parity=parity),
+                        dslash_library(s.links_intra, phi, lat, parity=parity))
             compare(results, "K3", f"K3 clover {lab}",
                     lambda: cuda_dslash.clover(s.cdiag, s.coff, phi, lat),
                     lambda: fast.clover_apply_soa(s.cdiag, s.coff, phi), dtype,
-                    (nbytes(s.cdiag, s.coff) + 2 * nbytes(phi), DSLASH_FLOPS["K3"] * V * B),
+                    dslash_work("K3", phi, clover=(s.cdiag, s.coff)),
                     clover_library(s.cdiag, s.coff, phi, lat))
-            compare(results, "K3", f"K3 clover inverse odd {lab}",
-                    lambda: cuda_dslash.clover(s.cdiag_inv, s.coff_inv, phi, lat, ODD),
-                    lambda: fast.clover_apply_soa(s.cdiag_inv, s.coff_inv, phi, lat, ODD),
-                    dtype, (nbytes(s.cdiag_inv, s.coff_inv) // 2 + 3 * nbytes(phi) // 2,
-                            DSLASH_FLOPS["K3"] * V * B // 2),
-                    clover_library(s.cdiag_inv, s.coff_inv, phi, lat, ODD))
+            # the odd-site inverse from its compact storage (the stencil's own,
+            # and at batch 1 that of a slab at an odd global offset)
+            for off in (0, 1) if B == 1 else (0,):
+                full = tuple(t.to(u.dtype) for t, u in zip(inv, (s.cdiag, s.coff)))
+                cd, co = (fast.compact_parity(t, lat, ODD, off) for t in full)
+                compare(results, "K3", f"K3 clover inverse odd (compact, offset {off}) {lab}",
+                        lambda: cuda_dslash.clover(cd, co, phi, lat, ODD, off, compact=True),
+                        lambda: fast.clover_apply_soa(cd, co, phi, lat, ODD, off, compact=True),
+                        dtype, dslash_work("K3", phi, clover=full, parity=ODD),
+                        clover_library(*full, phi, lat, ODD, off))
         del s
     d = 2 * params.depth[0].test_vectors
     cases = [("full K=9", (0, 9), None, None), ("hop K=8", (1, 9), None, None),

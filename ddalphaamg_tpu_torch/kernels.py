@@ -78,10 +78,10 @@ def counts() -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ddaamg_dslash_f32": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "ddaamg_dslash_f32": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "ddaamg_clover_f32": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 15 + [_P],
     "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 15 + [_P],
     "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 9 + [_P],

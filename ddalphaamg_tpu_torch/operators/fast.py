@@ -16,6 +16,9 @@ path a CPU tensor takes.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from ..gamma import get_basis
@@ -61,6 +64,46 @@ def parity_mask(lattice, parity: int, dtype=torch.float64, device=None,
     return (((t + z + y + x + offset) % 2) == parity).to(dtype).reshape(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _parity_sites(lattice, parity, offset, device):
+    """Site indices of one parity in site order.  With an even x extent
+    each x-pair (2h, 2h + 1) holds one site of either parity, so the k-th
+    of them is site 2k or 2k + 1: the checkerboard index is site // 2."""
+    if lattice[3] % 2:
+        raise ValueError(f"parity-compact storage needs an even x extent, got {lattice}")
+    mask = parity_mask(lattice, parity, torch.float32, device, offset)
+    return torch.nonzero(mask).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_mask(lattice, parity, offset, dtype, device):
+    return parity_mask(lattice, parity, dtype, device, offset)
+
+
+def _restrict(out, lattice, parity, offset):
+    """out with the sites of the other parity zeroed (parity None: out)."""
+    if parity is None:
+        return out
+    return out * _cached_mask(tuple(lattice), int(parity), int(offset) & 1,
+                              out.real.dtype, out.device)
+
+
+def compact_parity(a, lattice, parity: int, offset: int = 0):
+    """[..., V] -> [..., V/2]: the entries at the sites of one parity, by
+    checkerboard index (the compact odd-site storage of the fine clover
+    inverse; offset as in parity_mask)."""
+    idx = _parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)
+    return a.index_select(-1, idx).contiguous()
+
+
+def expand_parity(a, lattice, parity: int, offset: int = 0):
+    """Inverse of compact_parity: [..., V/2] -> [..., V], zeros at the
+    sites of the other parity."""
+    full = a.new_zeros((*a.shape[:-1], math.prod(lattice)))
+    full[..., _parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)] = a
+    return full
+
+
 # ---------------------------------------------------------------------------
 # plain versions of K1-K3
 # ---------------------------------------------------------------------------
@@ -94,16 +137,17 @@ def unpack_clover(cdiag: torch.Tensor, coff: torch.Tensor) -> torch.Tensor:
 
 
 def clover_apply_soa(cdiag, coff, phi, lattice=None, parity=None,
-                     parity_offset: int = 0):
+                     parity_offset: int = 0, compact: bool = False):
     """Plain K3: eta = C phi per site with C packed; parity (with lattice)
-    keeps only the sites of that parity (global parity: see parity_mask)."""
+    keeps only the sites of that parity (global parity: see parity_mask).
+    compact: C is stored at the sites of that parity only (compact_parity)."""
+    if compact:
+        cdiag = expand_parity(cdiag, lattice, parity, parity_offset)
+        coff = expand_parity(coff, lattice, parity, parity_offset)
     dense = unpack_clover(cdiag, coff)
     ph = phi.reshape(*phi.shape[:-2], 2, 6, phi.shape[-1])
     out = torch.einsum("cijx,...cjx->...cix", dense, ph).reshape(phi.shape)
-    if parity is not None:
-        out = out * parity_mask(lattice, parity, out.real.dtype, out.device,
-                                parity_offset)
-    return out
+    return _restrict(out, lattice, parity, parity_offset)
 
 
 def _color_mul(u, h):
@@ -111,8 +155,9 @@ def _color_mul(u, h):
     return sum(u[:, b] * h.narrow(-5, b, 1) for b in range(3))
 
 
-def dslash_hopping_soa(links, phi, lattice):
-    """Plain K2: - sum_mu [U(x)(1-g_mu) phi(x+mu) + U^H(x-mu)(1+g_mu) phi(x-mu)]."""
+def dslash_hopping_soa(links, phi, lattice, parity=None, parity_offset: int = 0):
+    """Plain K2: - sum_mu [U(x)(1-g_mu) phi(x+mu) + U^H(x-mu)(1+g_mu) phi(x-mu)];
+    parity keeps only the sites of that parity (as clover_apply_soa)."""
     lattice = tuple(lattice)
     p = phi.reshape(*phi.shape[:-2], 4, 3, *lattice)
     u = links.reshape(4, 3, 3, *lattice)
@@ -134,7 +179,7 @@ def dslash_hopping_soa(links, phi, lattice):
         hb = torch.roll(_color_mul(u[mu].conj().transpose(0, 1), h), 1, ax)
         up.sub_(hb)
         lo.sub_(v2[2:] * hb.index_select(-6, lft))
-    return out.reshape(phi.shape)
+    return _restrict(out.reshape(phi.shape), lattice, parity, parity_offset)
 
 
 def d_plus_clover_soa(links, cdiag, coff, phi, lattice):

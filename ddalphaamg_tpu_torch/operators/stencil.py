@@ -7,7 +7,11 @@ A stencil exposes (whole-lattice, mask-based; blocks never materialize):
     block_op(v)         D restricted to intra-Schwarz-block couplings
     self_op(v)          the per-site self-coupling (clover / A)
     self_inv(v, parity) the inverse self-coupling on the sites of one parity
-    hop(v), hop_intra(v)  hopping terms, all / intra-block only
+                        (the fine level stores it on the odd sites only)
+    hop(v), hop_intra(v, parity=None)  hopping terms, all / intra-block only;
+                        hop_intra's result is needed on the sites of a given
+                        parity only: the fine stencil computes those and
+                        writes zeros elsewhere, the coarse one every site
     even, odd           site-parity masks [V]
 
 Fields of every level share one layout, [*batch, dof, V] (dof-major, sites
@@ -141,14 +145,16 @@ class _SoALayout:
 @dataclasses.dataclass
 class WilsonStencilSoA(_SoALayout):
     """Fine-level Wilson-clover stencil: links, block-masked links and the
-    packed clover and clover inverse, all dof-major."""
+    packed clover and clover inverse, all dof-major.  The inverse is only
+    ever applied on the odd sites (the block odd-even solves of the SAP), so
+    it is stored there only, by checkerboard index (fast.compact_parity)."""
 
     links: torch.Tensor          # [4, 3, 3, V]
     links_intra: torch.Tensor
     cdiag: torch.Tensor          # [2, 6, V] real
     coff: torch.Tensor           # [2, 15, V]
-    cdiag_inv: torch.Tensor
-    coff_inv: torch.Tensor
+    cdiag_inv: torch.Tensor      # [2, 6, V/2] real, odd sites
+    coff_inv: torch.Tensor       # [2, 15, V/2], odd sites
     even: torch.Tensor           # [V] real
     odd: torch.Tensor
     geom: Geometry
@@ -168,9 +174,10 @@ class WilsonStencilSoA(_SoALayout):
         intra = torch.as_tensor(_link_intra_mask(geom), dtype=rdtype,
                                 device=links.device)
         cdiag, coff = cuda_dslash.pack_clover(clov)
-        cdiag_inv, coff_inv = cuda_dslash.pack_clover(clov_inv)
-        even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device,
-                               _slab_parity(mesh, geom.lattice))
+        offset = _slab_parity(mesh, geom.lattice)
+        cdiag_inv, coff_inv = (fast.compact_parity(t, geom.lattice, ODD, offset)
+                               for t in cuda_dslash.pack_clover(clov_inv))
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device, offset)
         return cls(links=links,
                    links_intra=(links * intra[:, None, None]).contiguous(),
                    cdiag=cdiag.to(rdtype), coff=coff.to(dtype),
@@ -204,11 +211,14 @@ class WilsonStencilSoA(_SoALayout):
         return cuda_dslash.clover(self.cdiag, self.coff, v, self.lattice)
 
     def self_inv(self, v, parity):
-        return cuda_dslash.clover(self.cdiag_inv, self.coff_inv, v,
-                                  self.lattice, parity, self.parity_offset)
+        if parity != ODD:
+            raise ValueError("the fine clover inverse is stored on the odd sites only")
+        return cuda_dslash.clover(self.cdiag_inv, self.coff_inv, v, self.lattice,
+                                  ODD, self.parity_offset, compact=True)
 
-    def hop_intra(self, v):
-        return cuda_dslash.hopping(self.links_intra, v, self.lattice)
+    def hop_intra(self, v, parity=None):
+        return cuda_dslash.hopping(self.links_intra, v, self.lattice, parity,
+                                   self.parity_offset)
 
 
 @dataclasses.dataclass
@@ -289,7 +299,8 @@ class CoarseStencilSoA(_SoALayout):
     def self_inv(self, v, parity):
         return self._apply(self.Pk_inv, v, (0, 1), parity=parity)
 
-    def hop_intra(self, v):
+    def hop_intra(self, v, parity=None):
+        # K4 selects a parity for the self term only: every site is computed
         return self._apply(self.Pk, v, (1, 9), masked=True)
 
 

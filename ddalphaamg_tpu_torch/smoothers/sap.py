@@ -35,7 +35,7 @@ import torch
 from ..geometry import Geometry
 from ..operators import cuda_dense
 from ..operators.coarse import compress
-from ..operators.stencil import ODD
+from ..operators.stencil import EVEN, ODD
 
 COLUMNS_PER_BATCH = 128   # one-hot columns per batched block_op of an inverse build
 
@@ -97,11 +97,13 @@ def _minres(s, r, block_op, block_iter: int):
 
 
 def _block_schur(s, v):
-    """Per-block Schur complement on even sites (block odd-even)."""
+    """Per-block Schur complement on even sites (block odd-even).  Each hop
+    maps one parity to the other and is read on one parity only, so it is
+    asked for that parity (the fine stencil computes only those sites)."""
     ve = s.even * v
     out = s.even * s.self_op(ve)
-    t = s.self_inv(s.hop_intra(ve), ODD)
-    return out - s.even * s.hop_intra(t)
+    t = s.self_inv(s.hop_intra(ve, ODD), ODD)
+    return out - s.even * s.hop_intra(t, EVEN)
 
 
 def to_blocks(v, geom: Geometry):
@@ -163,9 +165,9 @@ def _block_solve(s, r, block_iter: int, odd_even: bool, block_inv=None):
     if not odd_even:
         return _minres(s, r, s.block_op, block_iter)
     d_o1 = s.self_inv(r, ODD)
-    r_e = s.even * (r - s.hop_intra(d_o1))
+    r_e = s.even * (r - s.hop_intra(d_o1, EVEN))
     d_e = _minres(s, r_e, lambda v: _block_schur(s, v), block_iter)
-    d_o = s.self_inv(r - s.hop_intra(s.even * d_e), ODD)
+    d_o = s.self_inv(r - s.hop_intra(s.even * d_e, ODD), ODD)
     return s.even * d_e + d_o
 
 

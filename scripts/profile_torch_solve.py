@@ -5,12 +5,13 @@ CUDA card (torch.profiler, CUPTI kernel events):
     python3 scripts/profile_torch_solve.py [--root DIR] [--out FILE]
 
 In order: the setup (wall time), the first solve, a warm solve under the
-profiler (CPU and CUDA activities; kernel time by kernel, K4's launches and
-time, the device's busy share of the solve's wall time), a second warm
+profiler (CPU and CUDA activities; kernel time by kernel, the launches and
+time of K1, K2, K3 and K4, the device's busy share of the solve's wall
+time), a second warm
 solve with the host time of every coarse_apply call taken around the
 wrapper (perf_counter, no synchronisation: the host's cost of a launch),
 and a second setup under the profiler (CUDA activity only) to split the
-setup into K4 and the rest.  The profiler's own cost is in the profiled
+setup into K1-K4 and the rest.  The profiler's own cost is in the profiled
 wall times.  --root DIR profiles the package of another checkout (e.g. the
 parent commit unpacked by git archive) on the same data.  Prints a summary
 and writes it as JSON to FILE (default build/profile_torch_solve.json).
@@ -21,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -32,6 +34,11 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COARSE = ("coarse_kernel", "coarse_b1_kernel", "coarse_mrhs_kernel")   # K4 / K5, either design
+# K1 (dslash_kernel / dslash_mrhs_kernel with the clover), K2 (without)
+# and K3, either design
+WILSON = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true"),
+          "K2": re.compile(r"dslash_(mrhs_)?kernel<(float|double), false"),
+          "K3": re.compile(r"clover_kernel<")}
 
 
 def device_events(prof):
@@ -60,6 +67,13 @@ def busy_ms(events, lo, hi):
             total += t1 - max(t0, end)
             end = t1
     return total / 1e3
+
+
+def wilson_ms(table):
+    """{K1 / K2 / K3: [launches, device ms]}."""
+    return {key: [sum(c for name, (c, _) in table.items() if pat.search(name)),
+                  sum(t for name, (_, t) in table.items() if pat.search(name))]
+            for key, pat in WILSON.items()}
 
 
 def coarse_ms(table):
@@ -130,11 +144,11 @@ def main():
         iterations=[first.iterations, warm.iterations, warm2.iterations],
         warm_window_ms=wall_ms, warm_busy_ms=busy, warm_busy_share=busy / wall_ms,
         warm_kernel_ms=sum(t for _, t in table.values()),
-        warm_k4_launches=k4_launches, warm_k4_ms=k4_ms,
+        warm_k4_launches=k4_launches, warm_k4_ms=k4_ms, warm_wilson=wilson_ms(table),
         warm_top=[(name, c, t) for name, (c, t) in list(table.items())[:15]],
         coarse_apply_calls=len(calls), coarse_apply_host_us=host_us,
         setup_profiled_s=setup_prof_s, setup_k4_launches=s_k4_launches, setup_k4_ms=s_k4_ms,
-        setup_kernel_ms=s_all_ms,
+        setup_kernel_ms=s_all_ms, setup_wilson=wilson_ms(stable),
         setup_top=[(name, c, t) for name, (c, t) in list(stable.items())[:15]])
     print(f"setup {setup_s:.3f} s; first solve {first.solve_time:.3f} s; warm solve "
           f"{warm.solve_time:.3f} s profiled, {warm2.solve_time:.3f} s not; iterations "
@@ -144,6 +158,9 @@ def main():
           f"{k4_ms:.1f} ms in {k4_launches} launches "
           f"({1e3 * k4_ms / max(k4_launches, 1):.1f} us each)")
     print(f"coarse_apply: {len(calls)} calls, {host_us:.1f} us host time each")
+    for title in ("warm", "setup"):
+        print(f"{title}: " + ", ".join(f"{k} {n} launches {ms:.2f} ms ({1e3 * ms / max(n, 1):.1f} us each)"
+                                      for k, (n, ms) in result[f"{title}_wilson"].items()))
     print(f"setup under the profiler {setup_prof_s:.3f} s: kernels {s_all_ms:.1f} ms, K4 "
           f"{s_k4_ms:.1f} ms in {s_k4_launches} launches, rest of the wall time "
           f"{1e3 * setup_prof_s - s_k4_ms:.1f} ms")

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels K1-K6 (K4 and K5 with f32, f64 and bf16
+"""The hand-written CUDA kernels K1-K6 (K2 and K3 with a parity and the
+compact odd-site clover storage; K4 and K5 with f32, f64 and bf16
 blocks) against their plain PyTorch versions on a card, and small solves
 through them.  Every test here needs a CUDA
 device and skips without one.  The file imports neither JAX nor the JAX
@@ -67,6 +68,90 @@ def test_dslash_kernels_match_plain(cuda, dtype):
     ]
     for got, want in cases:
         assert _rel(got, want) < TOL[dtype]
+
+
+# K1-K3 at every shape class: small lattices, one whose x rows do not tile
+# the batched kernel's 128-site bricks (x = 6: linear blocks) and the
+# rough16 fine level (16^4), the batches of the path (1, 28 test vectors,
+# 56 Galerkin basis fields) and an odd one; every parity (K2 and K3) and
+# slab offset parity, the clover inverse in full and compact storage
+DSLASH_LATTICES = [(4, 4, 4, 8), (2, 4, 2, 6), (8, 4, 8, 8), (16, 16, 16, 16)]
+DSLASH_BATCHES = [1, 3, 28, 56]
+PARITIES = [(None, 0), (0, 0), (1, 0), (0, 1), (1, 1)]     # (parity, parity_offset)
+
+
+def _wilson_soa(lat, dtype, device, seed):
+    """Links, packed clover and packed clover inverse (every site) of a
+    random unitary field, in the kernels' layout and dtype."""
+    from ddalphaamg_tpu_torch.operators.stencil import herm_inv
+    from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
+
+    op = WilsonOperator.from_gauge(torch.as_tensor(_unitary_links(lat, seed), device=device),
+                                   -0.5, 1.0)
+    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
+    links = fast.links_to_soa(op.links).to(dtype)
+    packed = [cuda_dslash.pack_clover(fast.clover_to_soa(c)) for c in (op.clover, herm_inv(op.clover))]
+    return links, [(d.to(rdtype), o.to(dtype)) for d, o in packed]
+
+
+def _dslash_runs(links, clov, inv, phi, lat, parity, offset):
+    """(label, kernel run, plain run) of every K1-K3 entry point for one
+    parity case."""
+    runs = [("K2", lambda: cuda_dslash.hopping(links, phi, lat, parity, offset),
+             lambda: fast.dslash_hopping_soa(links, phi, lat, parity, offset)),
+            ("K3 full storage", lambda: cuda_dslash.clover(*inv, phi, lat, parity, offset),
+             lambda: fast.clover_apply_soa(*inv, phi, lat, parity, offset))]
+    if parity is None:
+        runs.append(("K1", lambda: cuda_dslash.d_plus_clover(links, *clov, phi, lat),
+                     lambda: fast.d_plus_clover_soa(links, *clov, phi, lat)))
+    else:
+        compact = [fast.compact_parity(t, lat, parity, offset) for t in inv]
+        runs.append(("K3 compact", lambda: cuda_dslash.clover(*compact, phi, lat, parity, offset,
+                                                             compact=True),
+                     lambda: fast.clover_apply_soa(*compact, phi, lat, parity, offset,
+                                                   compact=True)))
+    return runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", DSLASH_BATCHES)
+@pytest.mark.parametrize("lat", DSLASH_LATTICES)
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_dslash_kernels_every_shape(cuda, dtype, lat, batch):
+    links, (clov, inv) = _wilson_soa(lat, dtype, cuda, 13)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    phi = _cplx((batch, 12, int(np.prod(lat))), gen, dtype, cuda)
+    for parity, offset in PARITIES:
+        for label, run, plain in _dslash_runs(links, clov, inv, phi, lat, parity, offset):
+            assert _rel(run(), plain()) < TOL[dtype], (label, parity, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_dslash_kernels_are_deterministic(cuda, dtype):
+    """Two launches of every entry point on the same inputs give the same
+    bits (the four directions of a site are summed in a fixed order)."""
+    lat = (8, 4, 8, 8)
+    links, (clov, inv) = _wilson_soa(lat, dtype, cuda, 15)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    for batch in (1, 28):
+        phi = _cplx((batch, 12, int(np.prod(lat))), gen, dtype, cuda)
+        for parity, offset in PARITIES:
+            for label, run, _ in _dslash_runs(links, clov, inv, phi, lat, parity, offset):
+                assert torch.equal(run(), run()), (label, batch, parity, offset)
+
+
+@pytest.mark.gpu
+def test_dslash_parity_needs_even_x(cuda):
+    lat = (4, 4, 4, 3)
+    links, (_, inv) = _wilson_soa(lat, torch.complex64, cuda, 17)
+    phi = _cplx((1, 12, int(np.prod(lat))), torch.Generator(device=cuda).manual_seed(18),
+                torch.complex64, cuda)
+    assert _rel(cuda_dslash.hopping(links, phi, lat), fast.dslash_hopping_soa(links, phi, lat)) < 1e-5
+    with pytest.raises(ValueError):
+        cuda_dslash.hopping(links, phi, lat, 1)
+    with pytest.raises(ValueError):
+        cuda_dslash.clover(*inv, phi, lat, 0)
 
 
 @pytest.mark.gpu
