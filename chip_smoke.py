@@ -42,14 +42,25 @@ Phases, one result line each (or a few), in order:
               input; widened complex64 blocks for the bf16 rows, zeroed at
               the other parity's sites for self_inv odd), and torch.matmul
               on the widened complex64 matrix for K6, all in full f32
-              (utils.pin_full_precision)
+              (utils.pin_full_precision); K6 also over 12 right-hand sides
+              at both shapes (the batched cycles of phase "multi": the
+              multi-right-hand-side kernel, one read of the matrix), its
+              library call [nb, m, m] @ [nb, m, 12]
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
               solve of a right-hand side of ones, exact relative residual
               recomputed in complex128 from the returned x, < 1e-10 in <= 12
               outer iterations), with the launch count of each kernel in
-              that run (K1-K4 must be > 0); then a second, warm solve of
-              the same right-hand side, timed for phase 7
+              that run (K1-K4 must be > 0) and in its setup (the bootstrap
+              runs the cycles of a level's 28 test vectors as one batch);
+              then a second, warm solve of the same right-hand side, timed
+              for phase 7
+  4b. multi   Solver.solve_multi of the 12 spin-colour point sources at the
+              origin with phase 4's setup: every lane's exact relres
+              (complex128) < 1e-10 in <= 12 outer iterations; lanes 0 and
+              11, each solved alone by solve, within 1 iteration of their
+              lanes; the wall time of the batch and of the two single
+              solves, and the batch's launch counts
   5. sharded  the domain-decomposed main path: the same solve on a
               (1, 2, 1, 1) t/z process grid, two ranks spawned on this one
               card with the "gloo" transport (faces and sums cross the host:
@@ -69,6 +80,8 @@ Phases, one result line each (or a few), in order:
               relres < 1e-10 in <= 12 and <= phase 4 + 2 outer iterations,
               K4-bf16 and K6 launched, and no coarsest GCR iteration in the
               solve
+  7b. multi-direct  phase 4b with phase 7's setup (the options on: K6 over
+              12 right-hand sides, K4-bf16 at batch 12)
   8. sharded-direct  phase 5 with the three options: K5-bf16 must run, and
               the iterations are within 1 of phase 7
 
@@ -97,6 +110,7 @@ PLAQ = 1.7878261039088
 TOL = {torch.complex64: 1e-5, torch.complex128: 1e-13}
 BATCHES = (1, 28)
 GALERKIN_BATCH = 56       # 2N basis fields of the fine-level Galerkin build
+MULTI_RHS = 12            # phase "multi": the 12 spin-colour sources of a propagator
 # published H100 SXM rates (NVIDIA data sheet): memory, and dense
 # non-tensor-core arithmetic in f32 and f64
 MEM_BYTES_PER_S = 3.35e12
@@ -108,7 +122,9 @@ OPTIONS = ("coarse_block_bf16", "coarsest_direct", "smoother_direct")
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
-                "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6")}
+                "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6"),
+                "multi": ("K1", "K2", "K3", "K4"),
+                "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6")}
 
 
 def fail(msg):
@@ -496,12 +512,15 @@ def check_dense_kernel(results, gen, d, lat):
     for nb, m in ((1, d * coarsest // 2), (blocks, 16 * d)):
         A = coarse.compress(torch.randn((nb, m, m), generator=gen, dtype=torch.complex64,
                                         device=dev))
-        x = torch.randn((nb, m), generator=gen, dtype=torch.complex64, device=dev)
         wide = coarse.widen(A)
-        compare(results, "K6", f"K6 bf16 matvec [{nb}, {m}, {m}] batch 1",
-                lambda: cuda_dense.matvec(A, x), lambda: cuda_dense.matvec_plain(A, x),
-                torch.complex64, (nbytes(A) + 2 * nbytes(x), 8 * nb * m * m),
-                lambda: torch.matmul(wide, x.unsqueeze(-1)))
+        for R in (1, MULTI_RHS):
+            x = torch.randn((R, nb, m), generator=gen, dtype=torch.complex64, device=dev)
+            x = x[0] if R == 1 else x
+            xt = x.reshape(R, nb, m).permute(1, 2, 0).contiguous()    # [nb, m, R]
+            compare(results, "K6", f"K6 bf16 matvec [{nb}, {m}, {m}] batch {R}",
+                    lambda: cuda_dense.matvec(A, x), lambda: cuda_dense.matvec_plain(A, x),
+                    torch.complex64, (nbytes(A) + 2 * nbytes(x), 8 * nb * m * m * R),
+                    lambda: torch.matmul(wide, xt).permute(2, 0, 1))
         del A, wide
 
 
@@ -543,8 +562,11 @@ def main_path():
     if abs(plaq - PLAQ) > 1e-10:
         fail(f"plaquette {plaq:.13f} != {PLAQ}")
     status = solver.setup()
-    phase("solve", t0, f"setup {status.setup_time:.3f} s")
     at_setup = kernels.counts()
+    phase("solve", t0, f"setup {status.setup_time:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase("solve", t0, "launches in the setup (a level's test-vector cycles as one "
+          "batch) " + ", ".join(f"{k} {n}" for k, n in at_setup.items()))
     rhs = config.make_rhs("ones", solver.lattice)
     x, info = solver.solve(rhs)
     counts = kernels.counts()
@@ -567,7 +589,56 @@ def main_path():
           f"iterations")
     if warm.iterations != info.iterations:
         fail(f"the warm solve took {warm.iterations} iterations, the first {info.iterations}")
-    return counts, info.iterations, warm.solve_time
+    return counts, info.iterations, warm.solve_time, solver
+
+
+def point_sources(lattice):
+    """The 12 spin-colour point sources at the origin, [12, T, Z, Y, X, 4, 3]."""
+    import numpy as np
+
+    rhs = np.zeros((MULTI_RHS, *lattice, 4, 3), np.complex128)
+    rhs[np.arange(MULTI_RHS), 0, 0, 0, 0, np.arange(MULTI_RHS) // 3, np.arange(MULTI_RHS) % 3] = 1
+    return rhs
+
+
+def multi_path(name, solver):
+    """Solver.solve_multi of the 12 point sources with the solver's setup,
+    held against solve of lanes 0 and 11 alone."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    rhs = point_sources(solver.lattice)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    x, infos = solver.solve_multi(rhs)
+    counts = kernels.counts()
+    batch = infos[0].solve_time * len(infos)
+    exact = [exact_relres(solver, x[i], rhs[i]) for i in range(len(infos))]
+    its = [i.iterations for i in infos]
+    phase(name, t0, f"solve_multi of {len(infos)} point sources: {batch:.3f} s, outer "
+          f"iterations {its}, exact relres max {max(exact):.6e}, coarse average "
+          f"{infos[0].coarse_average:.2f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase(name, t0, "launches " + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    if not (x.shape == rhs.shape and np.isfinite(x).all()):
+        fail(f"{name}: the solutions are not finite fields of the batch's shape")
+    if not all(i.converged and e < 1e-10 and i.iterations <= 12 for i, e in zip(infos, exact)):
+        fail(f"{name}: a lane did not meet relres < 1e-10 in <= 12 iterations "
+             f"(iterations {its}, exact relres {exact})")
+    check_counts(name, counts)
+    singles = []
+    for lane in (0, len(infos) - 1):
+        _, one = solver.solve(rhs[lane])
+        singles.append(one.solve_time)
+        phase(name, t0, f"lane {lane} alone: {one.solve_time:.3f} s, {one.iterations} outer "
+              f"iterations (in the batch {its[lane]})")
+        if abs(one.iterations - its[lane]) > 1:
+            fail(f"{name}: lane {lane} took {its[lane]} iterations in the batch and "
+                 f"{one.iterations} alone")
+    phase(name, t0, f"batch of {len(infos)} {batch:.3f} s against {sum(singles) / 2:.3f} s "
+          f"a single solve ({len(infos)} singles ~ {len(infos) * sum(singles) / 2:.3f} s)")
 
 
 def direct_path(single_iterations, single_warm):
@@ -617,7 +688,7 @@ def direct_path(single_iterations, single_warm):
         if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
             fail(f"{name}: {lab} solve ran the coarsest GCR")
     check_counts(name, counts)
-    return counts, info.iterations
+    return counts, info.iterations, solver
 
 
 def sharded_rank(mesh, device, options=False):
@@ -712,7 +783,10 @@ def main():
     check_kernels(results)
     phase("kernels", t0, "all kernels agree with their plain versions")
 
-    counts, iterations, warm = main_path()
+    counts, iterations, warm, solver = main_path()
+    multi_path("multi", solver)
+    del solver
+    torch.cuda.empty_cache()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)
     counts["K5"] = sharded["K5"]
     n = torch.cuda.device_count()
@@ -723,7 +797,10 @@ def main():
     else:
         print(f"[nccl] not run: {n} card (the nccl transport needs a card per rank)",
               flush=True)
-    direct, direct_iterations = direct_path(iterations, warm)
+    direct, direct_iterations, solver = direct_path(iterations, warm)
+    multi_path("multi-direct", solver)
+    del solver
+    torch.cuda.empty_cache()
     counts["K4-bf16"], counts["K6"] = direct["K4-bf16"], direct["K6"]
     sharded_direct = sharded_path("sharded-direct", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2,
                                   direct_iterations, options=True)

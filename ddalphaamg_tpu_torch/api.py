@@ -6,12 +6,15 @@ JAX package's api.Solver: set_conf / setup / solve.
     plaq = solver.set_conf(U)            # U [4,T,Z,Y,X,3,3] numpy, raw links
     solver.setup()                       # hierarchy + bootstrap
     x, info = solver.solve(rhs, tol=1e-10)
+    xs, infos = solver.solve_multi(rhs_batch)   # [B, T, Z, Y, X, 4, 3]
 
 Ported: method 2 (FGMRES + red-black SAP) with interpolation 2 (bootstrap
 F-cycle setup) and two or more levels, mixed precision 0 (complex128 inner
 solve) or 1 and 2 (complex64 inner solve).  The outer loop refreshes the
 true residual in complex128 once per restart and runs each restart's inner
-solve as flexible GCR preconditioned by the multigrid cycle.
+solve as flexible GCR preconditioned by the multigrid cycle.  It runs a
+batch of right-hand sides (solve_multi; solve is batch 1), each with its
+own tolerances and stop.
 
 The JAX package's accelerator options are ported and off unless the ini
 turns them on (`coarse block bf16: 1`, `coarsest direct: 1`,
@@ -33,7 +36,6 @@ global array on every rank.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Optional
 
@@ -201,16 +203,18 @@ class Solver:
         """A wall time every rank reports alike: the slowest rank's."""
         return seconds if self.mesh is None else comm.all_reduce_max(self.mesh, seconds)
 
-    def _norm(self, v) -> float:
-        """The global 2-norm of a fine field (a slab under a mesh)."""
+    def _norms(self, v) -> np.ndarray:
+        """The global 2-norm of every lane of fine fields [*B, 12, V] (slabs
+        [*B, 12, V_l] under a mesh), on the host: one read of the device."""
+        f = v.reshape(-1, v.shape[-2] * v.shape[-1])
         if self.mesh is None:
-            return float(torch.linalg.vector_norm(v))
-        f = v.reshape(-1)
-        return math.sqrt(float(self.outer.allsum(torch.vdot(f, f).real)))
+            return torch.linalg.vector_norm(f, dim=1).cpu().numpy()
+        return np.sqrt(self.outer.allsum(torch.linalg.vecdot(f, f).real).cpu().numpy())
 
     def _scatter(self, a) -> torch.Tensor:
-        """A global numpy fine field [T, Z, Y, X, 4, 3] -> this rank's
-        dof-major slab [12, V_l] in complex128 (rank 0's copy under a mesh)."""
+        """Global numpy fine fields [*B, T, Z, Y, X, 4, 3] -> this rank's
+        dof-major slabs [*B, 12, V_l] in complex128 (rank 0's copy under a
+        mesh)."""
         b = fast.spinor_to_soa(torch.as_tensor(np.asarray(a, np.complex128),
                                                device=self.device))
         if self.mesh is None:
@@ -225,17 +229,31 @@ class Solver:
         return self.outer.full_op(v)
 
     def solve(self, rhs=None, tol: Optional[float] = None):
-        """Solve D x = rhs; rhs and x are numpy [T, Z, Y, X, 4, 3]."""
+        """Solve D x = rhs; rhs and x are numpy [T, Z, Y, X, 4, 3] (batch 1
+        of solve_multi)."""
+        if rhs is None:
+            rhs = make_rhs(self.p.right_hand_side, self.lattice, seed=self.p.seed)
+        x, infos = self.solve_multi(np.asarray(rhs)[None], tol)
+        return x[0], infos[0]
+
+    def solve_multi(self, rhs_batch, tol: Optional[float] = None):
+        """Solve D x_i = rhs_i for a stack of right-hand sides rhs_batch
+        [B, T, Z, Y, X, 4, 3] (numpy) with one setup, all B systems
+        together (the JAX package's Solver.solve_multi, api.py:792-839):
+        every cycle, GCR and kernel runs the batch, and each system stops
+        on its own.  Returns (x [B, T, Z, Y, X, 4, 3], [SolveInfo] * B);
+        as in the JAX package's batched path, solve_time is the batch's
+        wall time over B, the coarse averages are over the batch's
+        iterations and coarsest_inverse_applies is the batch's over B."""
         if self.mg is None:
             raise RuntimeError("call setup first")
-        p = self.p
-        tol = p.tol if tol is None else tol
-        if rhs is None:
-            rhs = make_rhs(p.right_hand_side, self.lattice, seed=p.seed)
+        tol = self.p.tol if tol is None else tol
+        rhs_batch = np.asarray(rhs_batch)
+        B = rhs_batch.shape[0]
         self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0,
                              coarsest_inverse_applies=0.0)
         t0 = time.perf_counter()
-        b = self._scatter(rhs)
+        b = self._scatter(rhs_batch)
         x, iters, relres, resvec = self._solve_mp(b, tol)
         if self.mesh is not None:
             x = gather_field(self.mesh, x, self.local_lattice)
@@ -243,48 +261,58 @@ class Solver:
         dt = self._wall(time.perf_counter() - t0)
         x_log = fast.spinor_from_soa(x, self.lattice).cpu().numpy()
         st = self.mg.stats
-        info = SolveInfo(iterations=iters, relres=relres, converged=relres < tol,
-                         solve_time=dt,
-                         coarse_average=st["coarse_iterations"] / max(iters, 1),
-                         coarse_matvec_average=st["coarse_matvecs"] / max(iters, 1),
-                         coarsest_inverse_applies=st["coarsest_inverse_applies"],
-                         resvec=resvec)
-        return x_log, info
+        total = max(int(iters.sum()), 1)
+        infos = [SolveInfo(iterations=int(iters[i]), relres=float(relres[i]),
+                           converged=bool(relres[i] < tol), solve_time=dt / B,
+                           coarse_average=st["coarse_iterations"] / total,
+                           coarse_matvec_average=st["coarse_matvecs"] / total,
+                           coarsest_inverse_applies=st["coarsest_inverse_applies"] / B,
+                           resvec=[float(rv[i]) for rv in resvec])
+                 for i in range(B)]
+        return x_log, infos
 
     def _solve_mp(self, b, tol):
-        """Outer loop: once per restart the complex128 true residual, then
-        one inner flexible-GCR restart in the inner precision asked to reduce
-        it by what remains to be done, but by no more than inner_tol_clip.
-        The default clip is 1e-5 for a complex64 inner solve (the
-        reference's inner threshold MAX(tol, 1e-5), src/linsolve.c:44: an
-        f32 sweep cannot verify a deeper reduction and stalls when asked
-        to) and none for a complex128 inner solve, which then runs as one
-        Krylov space like the reference's double-precision FGMRES."""
+        """Outer loop of every lane of b [B, 12, V]: once per restart the
+        complex128 true residual of all lanes (one K1 apply at batch B),
+        then one inner flexible-GCR restart of all lanes in the inner
+        precision, each lane asked to reduce its residual by what remains
+        to be done, but by no more than inner_tol_clip; lanes that have
+        converged are masked off and keep their x.  The default clip is
+        1e-5 for a complex64 inner solve (the reference's inner threshold
+        MAX(tol, 1e-5), src/linsolve.c:44: an f32 sweep cannot verify a
+        deeper reduction and stalls when asked to) and none for a
+        complex128 inner solve, which then runs as one Krylov space like
+        the reference's double-precision FGMRES.  Returns (x, iterations
+        [B], relres [B], resvec: the relres of every restart)."""
         p = self.p
         if p.inner_tol_clip is not None:
             clip = float(p.inner_tol_clip)
         else:
             clip = 1e-5 if self._inner_dtype == torch.complex64 else 0.0
-        norm_b = self._norm(b) or 1.0
+        norm_b = self._norms(b)
+        norm_b = np.where(norm_b == 0, 1.0, norm_b)
         x = torch.zeros_like(b)
-        iters, resvec, relres = 0, [], 1.0
+        iters = torch.zeros(b.shape[0], device=b.device)
+        resvec = []
         for restart in range(p.max_restarts + 1):
             r = b if restart == 0 else b - self.apply_operator(x)
-            nr = self._norm(r)
+            nr = self._norms(r)
             relres = nr / norm_b
             resvec.append(relres)
-            if relres < tol or restart == p.max_restarts:
+            active = relres >= tol
+            if not active.any() or restart == p.max_restarts:
                 break
-            z, it = self.mg.inner_restart(r.to(self._inner_dtype),
-                                          max(tol * norm_b / nr, clip),
-                                          m=p.restart_length)
+            rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300), clip)
+            z, it = self.mg.inner_restart(
+                r.to(self._inner_dtype), torch.as_tensor(rel_tol, device=b.device),
+                m=p.restart_length, active=torch.as_tensor(active, device=b.device))
             x = x + z.to(torch.complex128)
-            iters += it
-        return x, iters, relres, resvec
+            iters = iters + it
+        return x, iters.cpu().numpy().astype(int), relres, resvec
 
     def true_residual(self, x, rhs) -> float:
         """||rhs - D x|| / ||rhs|| in complex128 (the reference's
         FGMRES_RESTEST); x and rhs are global arrays."""
         b = self._scatter(rhs)
         r = b - self.apply_operator(self._scatter(x))
-        return self._norm(r) / self._norm(b)
+        return float(self._norms(r)[0] / self._norms(b)[0])

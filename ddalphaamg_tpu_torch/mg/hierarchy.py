@@ -15,8 +15,14 @@ Reference call paths rebuilt here (as in the JAX package's mg/hierarchy.py):
     cycle, re_setup_PRECISION rebuilding P and D_c, and the F-cycle
     recursion into coarser levels.
 
-Fields of every level are [dof, V] (operators/stencil.py); the per-TV setup
-cycles run one test vector at a time.
+Fields of every level are [dof, V] (operators/stencil.py).  The cycles run a
+batch of right-hand sides ("lanes") [B, dof, V] at once, each lane with its
+own early exit in every GCR (solvers/device_gmres.py), as the JAX package
+vmaps its cycle: the bootstrap runs the cycles of all test vectors of a
+level as one batch (_setup_cycles_batch), Solver.solve_multi its right-hand
+sides, and a single right-hand side is batch 1 of the same code.  The
+cycles' coarse-work counters stay on the device ([B, 3]) and are added to
+stats once per preconditioner call or inner restart.
 
 Under a mesh (MGConfig.mesh, a t/z process grid) the fine level and every
 intermediate level whose slab keeps at least min_local_sites sites are
@@ -50,6 +56,7 @@ level the inverses of the blocks of its slab.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -61,12 +68,20 @@ from ..operators.stencil import (ODD, CoarseStencilSoA, WilsonStencilSoA, dense_
                                  dense_schur_inverse, dense_schur_solve, dense_solve, schur,
                                  schur_even_indices)
 from ..operators.wilson import WilsonOperator
+from ..parallel import comm
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
 from ..solvers.device_gmres import device_gcr
 from .galerkin import build_coarse_operator, gather
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
+
+COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
+# the setup's memory estimate (_lane_bytes, _setup_chunk): fields of one
+# lane a level holds at once in a cycle (SAP, restriction, GCR temporaries),
+# and the share of the card's free memory the setup's lanes may take
+LANE_FIELDS = 32
+SETUP_MEMORY_SHARE = 0.5
 
 
 @dataclasses.dataclass
@@ -302,20 +317,20 @@ class Multigrid:
     # ------------------------------------------------------------------
 
     def _coarsest_solve(self, level: MGLevel, b):
-        """The coarsest solve: one apply of the dense inverse
-        (coarsest_direct), else odd-even Schur GCR
-        (coarse_solve_odd_even_PRECISION).  Returns (x, counters) with
-        counters = [iterations, GCR operator applications, dense applies]
-        as in the JAX package (hierarchy.py:659-699): a dense apply counts
-        as one iteration and as no GCR application."""
+        """The coarsest solve of every lane of b [B, d, V]: one product with
+        the dense inverse (coarsest_direct), else odd-even Schur GCR
+        (coarse_solve_odd_even_PRECISION).  Returns (x, counters [B, 3])
+        with counters = [iterations, GCR operator applications, dense
+        applies] as in the JAX package (hierarchy.py:659-699): a dense apply
+        counts as one iteration and as no GCR application."""
         cfg = self.cfg
         s = self._cycle_view(level)
         if level.dense_inv is not None:
-            if isinstance(level.dense_inv, tuple):
-                x = dense_schur_solve(s, *level.dense_inv, b)
-            else:
-                x = dense_solve(level.dense_inv, b)
-            return x, np.array([1.0, 0.0, 1.0])
+            # the Schur inverse is built exactly where odd-even applies
+            x = (dense_schur_solve(s, *level.dense_inv, b) if self._odd_even(level)
+                 else dense_solve(level.dense_inv, b))
+            one = torch.tensor([1.0, 0.0, 1.0], dtype=COUNTER_DTYPE, device=b.device)
+            return x, one.expand(b.shape[0], 3)
         if self._odd_even(level):
             b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
             x_e, iters, _, _ = device_gcr(lambda v: schur(s, v), b_e, m=cfg.coarse_iter,
@@ -329,7 +344,9 @@ class Multigrid:
                                         tol=cfg.coarse_tol,
                                         n_restarts=cfg.coarse_restart,
                                         allsum=s.allsum)
-        return x, np.array([iters, iters + cfg.coarse_restart, 0.0], dtype=np.float64)
+        iters = iters.to(COUNTER_DTYPE)
+        return x, torch.stack([iters, iters + cfg.coarse_restart, torch.zeros_like(iters)],
+                              dim=1)
 
     def _odd_even(self, level: MGLevel) -> bool:
         """Whether the coarsest level is solved through its Schur complement."""
@@ -397,14 +414,15 @@ class Multigrid:
         return interpolate(level.agg, level.P, x_c)
 
     def _cycle(self, depth: int, eta, kcycle_tol: float, collect=None):
-        """One preconditioning cycle at `depth` (vcycle_PRECISION); returns
-        (x, counters).  `collect` receives the next level's solution of the
-        top-level coarse correction (the bootstrap's test-vector update)."""
+        """One preconditioning cycle at `depth` (vcycle_PRECISION) of every
+        lane of eta [B, dof, V]; returns (x, counters [B, 3]).  `collect`
+        receives the next level's solution of the top-level coarse
+        correction (the bootstrap's test-vector update), [B, ...]."""
         cfg = self.cfg
         levels = self._levels()
         level, nxt = levels[depth], levels[depth + 1]
         s = self._cycle_view(level)
-        counters = np.zeros(3)
+        counters = torch.zeros((eta.shape[0], 3), dtype=COUNTER_DTYPE, device=eta.device)
         x = None
         for _ in range(level.cfg.n_cy):
             r = eta if x is None else eta - s.full_op(x)
@@ -420,11 +438,11 @@ class Multigrid:
                     ns.full_op, b_c, m=cfg.kcycle_length,
                     tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec,
                     allsum=ns.allsum)
-                it = np.zeros(3) if it is None else it
             else:
                 x_c, it = self._cycle(depth + 1, b_c, kcycle_tol,
                                       collect=collect)
-            counters = counters + it
+            if it is not None:      # None: a K-cycle GCR that did no iteration
+                counters = counters + it
             if collect is not None:
                 collect[depth + 1] = x_c
             corr = self._interpolate(level, x_c)
@@ -442,34 +460,39 @@ class Multigrid:
         return 0.0 if self.cfg.num_levels - depth <= 2 else float(tol)
 
     def __call__(self, eta):
-        """Depth-0 preconditioner application M(eta)."""
+        """Depth-0 preconditioner application M(eta) of one field [dof, V]
+        or of a batch [B, dof, V] (batch 1 of the same cycle for one)."""
         self._ensure_inverses()
         s = self.fine.stencil
-        x, counters = self._cycle(0, eta.to(s.dtype),
-                                  self._kcycle_tol(0, self.cfg.kcycle_tol))
+        lanes = eta.reshape(-1, *eta.shape[-2:]).to(s.dtype)
+        x, counters = self._cycle(0, lanes, self._kcycle_tol(0, self.cfg.kcycle_tol))
         self._count(counters)
-        return x
+        return x.reshape(eta.shape)
 
     def _count(self, counters):
+        """Add the [B, 3] counters of a cycle or an inner restart to stats
+        (one read of the device)."""
         for key, c in zip(("coarse_iterations", "coarse_matvecs",
-                           "coarsest_inverse_applies"), counters):
-            self.stats[key] += float(c)
+                           "coarsest_inverse_applies"), counters.sum(dim=0).tolist()):
+            self.stats[key] += c
 
-    def inner_restart(self, r, rel_tol: float, m: int):
-        """One inner restart of the mixed-precision outer loop: m iterations
-        of flexible GCR over the fine operator, preconditioned by the
-        multigrid cycle, stopped once the residual falls below rel_tol.
-        Returns (z, iterations)."""
+    def inner_restart(self, r, rel_tol, m: int, active=None):
+        """One inner restart of the mixed-precision outer loop for every lane
+        of r [B, 12, V]: m iterations of flexible GCR over the fine
+        operator, preconditioned by the multigrid cycle, each lane stopped
+        once its residual falls below its rel_tol (a float or a [B]
+        tensor); lanes off in `active` [B] do not iterate.  Returns
+        (z, iterations [B]), both on the device."""
         self._ensure_inverses()
         s = self.fine.stencil
-        ktol = float(self.cfg.kcycle_tol)
+        ktol = self._kcycle_tol(0, self.cfg.kcycle_tol)
 
         def prec(w):
             return self._cycle(0, w, ktol)
 
         z, iters, _, counters = device_gcr(s.full_op, r.to(s.dtype), m=m,
                                            tol=rel_tol, n_restarts=1, prec=prec,
-                                           allsum=s.allsum)
+                                           allsum=s.allsum, active=active)
         if counters is not None:
             self._count(counters)
         return z, iters
@@ -492,26 +515,61 @@ class Multigrid:
         finally:
             self._defer_dense = False
 
-    def _setup_cycles(self, level: MGLevel, tvs):
-        """The bootstrap cycle of every test vector, one at a time
-        (kcycle tolerance = coarse_tol during setup,
-        src/setup_generic.c:448).  Returns (xs, {depth: collected})."""
+    def _setup_cycles_batch(self, level: MGLevel, tvs):
+        """The bootstrap cycles of all test vectors of a level as one batch
+        (the JAX package's _setup_cycles_batch, hierarchy.py:946-987; kcycle
+        tolerance = coarse_tol during setup, src/setup_generic.c:448): the
+        reference's i-loop over test vectors has no dependency between
+        vectors inside one bootstrap iteration.  The lanes run in chunks
+        that fit the device's free memory (one chunk unless the level is
+        large; _setup_chunk).  Returns (xs, {depth: collected [N, ...]})."""
         ktol = self._kcycle_tol(level.depth, self.cfg.coarse_tol)
+        chunk = self._setup_chunk(level, tvs.shape[0])
         xs, coll = [], {}
-        for tv in tvs:
+        for c0 in range(0, tvs.shape[0], chunk):
             collect = {}
-            x, _ = self._cycle(level.depth, tv, ktol, collect=collect)
+            x, _ = self._cycle(level.depth, tvs[c0:c0 + chunk], ktol, collect=collect)
             xs.append(x)
             for dep, xc in collect.items():
                 coll.setdefault(dep, []).append(xc)
-        return torch.stack(xs), {d: torch.stack(v) for d, v in coll.items()}
+        return torch.cat(xs), {d: torch.cat(v) for d, v in coll.items()}
+
+    def _lane_bytes(self, level: MGLevel) -> int:
+        """An estimate of the device bytes one lane of a setup cycle at
+        `level` holds at its peak: LANE_FIELDS fields of every level from
+        `level` down, plus the GCR bases (2 m fields) of the levels below."""
+        cfg = self.cfg
+        total = 0
+        for lvl in self._levels()[level.depth:]:
+            fields = LANE_FIELDS
+            if lvl is not level:
+                fields += 2 * (cfg.coarse_iter if lvl.is_coarsest else cfg.kcycle_length)
+            field = math.prod(lvl.stencil.field_shape) * lvl.stencil.dtype.itemsize
+            total += fields * field
+        return total
+
+    def _setup_chunk(self, level: MGLevel, n: int) -> int:
+        """Lanes of one setup batch: all n, except where SETUP_MEMORY_SHARE
+        of the card's free memory (the caching allocator's idle blocks
+        counted free) cannot hold them.  Under a mesh every rank takes the
+        smallest rank's chunk, so that all ranks make the same collective
+        calls."""
+        dev = level.stencil.device
+        chunk = n
+        if dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev)
+            free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+            chunk = max(1, min(n, int(SETUP_MEMORY_SHARE * free) // self._lane_bytes(level)))
+        if self.cfg.mesh is not None:
+            chunk = -int(comm.all_reduce_max(self.cfg.mesh, -chunk))
+        return chunk
 
     def _inv_iter_fcycle(self, level: MGLevel, setup_iter: int):
         for j in range(setup_iter):
             tvs = level.test_vectors
             n = tvs.shape[0]
             q = block_qr(tvs.reshape(n, -1).transpose(0, 1), level.stencil.allsum)
-            xs, collect = self._setup_cycles(level, q.transpose(0, 1).reshape(tvs.shape))
+            xs, collect = self._setup_cycles_batch(level, q.transpose(0, 1).reshape(tvs.shape))
             level.test_vectors = _normalize(xs, level.stencil)
             # test_vector_PRECISION_update: coarse solutions of the cycles
             lvl = level.next

@@ -356,19 +356,23 @@ def dense_schur_inverse(s, idx, bf16: bool = False):
 
 
 def dense_schur_solve(s, inv, idx, b):
-    """Coarsest direct solve of D x = b (b [d, V]) with the Schur inverse:
-    odd elimination, one [n/2, n/2] matvec, odd reconstruction."""
+    """Coarsest direct solve of D x = b (b [*B, d, V], every leading index a
+    right-hand side) with the Schur inverse: odd elimination, one
+    [n/2, n/2] product for all right-hand sides, odd reconstruction."""
     b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
-    xc = cuda_dense.matvec(inv, b_e.reshape(1, -1)[:, idx])
-    x_e = torch.zeros_like(b_e).reshape(-1)
-    x_e[idx] = xc[0]
+    flat = b_e.reshape(-1, 1, math.prod(s.field_shape))
+    xc = cuda_dense.matvec(inv, flat[..., idx])
+    x_e = torch.zeros_like(flat)
+    x_e[..., idx] = xc
     x_e = x_e.reshape(b.shape)
     return x_e + s.self_inv(b - s.hop(x_e), ODD)
 
 
 def dense_solve(inv, b):
-    """x = inv b for b in the stencil's field layout (one matvec)."""
-    return cuda_dense.matvec(inv, b.reshape(1, -1)).reshape(b.shape)
+    """x = inv b for b [*B, d, V] in the stencil's field layout (one product
+    for all right-hand sides)."""
+    n = inv.shape[-2]
+    return cuda_dense.matvec(inv, b.reshape(-1, 1, n)).reshape(b.shape)
 
 
 def herm_inv(a: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ couplings masked to zero, so solving every block of one color at once is one
 whole-lattice masked stencil apply; block inner products are per-block
 reductions.  The multiplicative residual update is the global
 r <- r - D delta with the full operator after each color.  Fields may carry
-a leading batch axis (the initial test-vector smoothing runs all test
-vectors at once).
+a leading batch axis (the initial test-vector smoothing and the batched
+cycles run all their right-hand sides at once).
 
 On a sharded level (a stencil with a mesh) the colors come from global block
 coordinates, as slabs of the global color masks; block solves and their
@@ -150,8 +150,9 @@ def build_block_inverse(s, bf16: bool = False):
 
 
 def apply_block_inverse(s, binv, r):
-    """delta = blockD^-1 r (r [d, V] masked to one color) by one batched
-    matvec; blocks of the other color hold zeros and stay zero."""
+    """delta = blockD^-1 r (r [*B, d, V] masked to one color) by one
+    product with the block inverses for all right-hand sides; blocks of the
+    other color hold zeros and stay zero."""
     rb = to_blocks(r, s.geom)
     return from_blocks(cuda_dense.matvec(binv, rb), s.geom, s.dof)
 

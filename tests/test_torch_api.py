@@ -131,7 +131,9 @@ def test_gcr_recurrence_keeps_the_field_precision():
     A = torch.as_tensor(np.eye(n) * 3 + (rng.normal(size=(n, n))
                                          + 1j * rng.normal(size=(n, n))) / np.sqrt(n))
     b = torch.as_tensor(rng.normal(size=n) + 1j * rng.normal(size=n))
-    x, it, rel2, _ = device_gmres.device_gcr(lambda v: A @ v, b, m=n, tol=1e-14)
+    # one lane: device_gcr takes a batch [B, n]
+    x, it, rel2, _ = device_gmres.device_gcr(lambda v: v @ A.T, b[None], m=n, tol=1e-14)
+    x = x[0]
     assert x.dtype == torch.complex128
     # an orthogonalization below complex128 floors the true residual near 1e-7
     assert float(torch.linalg.vector_norm(b - A @ x) / torch.linalg.vector_norm(b)) < 1e-13

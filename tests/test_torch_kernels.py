@@ -236,6 +236,27 @@ def test_dense_bf16_matvec_unaligned_rows(cuda, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nb, m", [(1, 7168), (256, 896), (5, 90)],
+                         ids=["schur-inverse", "block-inverses", "unaligned-rows"])
+@pytest.mark.parametrize("R", [1, 3, 12, 28])
+def test_dense_bf16_matvec_many_rhs(cuda, nb, m, R):
+    """K6 over R right-hand sides x [R, nb, m] at rough16's two stored
+    inverses and on rows that are not 16-byte aligned: one launch per 12
+    right-hand sides, each lane's result that of a batch-1 launch on it
+    alone."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    A = coarse.compress(_cplx((nb, m, m), gen, torch.complex64, cuda))
+    x = _cplx((R, nb, m), gen, torch.complex64, cuda)
+    kernels.reset_counts()
+    got = cuda_dense.matvec(A, x)
+    assert kernels.counts()["K6"] == -(-R // cuda_dense.MRHS_MAX)
+    assert got.shape == x.shape
+    assert _rel(got, cuda_dense.matvec_plain(A, x)) < 1e-5
+    for r in (0, R - 1):    # the batch-1 kernel's summation order, bit for bit
+        assert torch.equal(got[r], cuda_dense.matvec(A, x[r]))
+
+
+@pytest.mark.gpu
 def test_coarse_parity_offset_matches_plain(cuda):
     lat, d = (2, 3, 2, 2), 8
     V = int(np.prod(lat))

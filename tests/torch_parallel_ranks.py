@@ -71,6 +71,18 @@ def solve(mesh, ini, U):
     return x, info.iterations, info.relres, s.true_residual(x, rhs)
 
 
+def solve_multi(mesh, ini, U, rhs):
+    """Solver.solve_multi on the mesh (None: one rank) of the right-hand
+    sides rhs [B, T, Z, Y, X, 4, 3]: (x, iterations, exact relres of each
+    lane)."""
+    s = api.Solver(config.parse_ini(ini), device="cpu", mesh=mesh)
+    s.set_conf(U, links_have_bc=True)
+    s.setup()
+    x, infos = s.solve_multi(rhs)
+    return (x, [i.iterations for i in infos],
+            [s.true_residual(xi, bi) for xi, bi in zip(x, rhs)])
+
+
 def solve_sharded_levels(mesh, ini, U, inner_tol_clip=None):
     """Solver whose intermediate levels are all sharded (min_local_sites 0;
     mesh None: one rank): (x, iterations, exact relres, per level (sharded,
@@ -116,7 +128,7 @@ def run(mesh, device, cases):
     torch.set_num_threads(1)
     fns = {"fine_full_op": fine_full_op, "coarse_hops": coarse_hops,
            "mg_cycle": mg_cycle, "solve": solve, "odd_offset": odd_offset,
-           "solve_sharded_levels": solve_sharded_levels}
+           "solve_sharded_levels": solve_sharded_levels, "solve_multi": solve_multi}
     return {name: fns[fn](mesh, **kw) for name, (fn, kw) in cases.items()}
 
 
