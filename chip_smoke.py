@@ -12,10 +12,12 @@ Phases, one result line each (or a few), in order:
               the card at the shapes of the rough16 solve (16^4 fine level:
               K1 at batch 1, 28 and 56 (the Galerkin build), K2 on block
               links on all sites and on the odd sites (the SAP's block
-              odd-even solve) at batch 1 and 28 and on the Galerkin build's
-              face links at batch 56, K3 with the clover and with the
-              odd-site inverse from its compact storage, also of a slab at
-              an odd global offset (parity_offset 1);
+              odd-even solve) at batch 1 and 28, on the Galerkin build's
+              face links at batch 56 and on the full links on the even and
+              on the odd sites at batch 1 (method 4's D_eo / D_oe), K3 with
+              the clover (also on the even sites at batch 1, method 4's
+              A_ee) and with the odd-site inverse from its compact storage,
+              also of a slab at an odd global offset (parity_offset 1);
               8^4 and 4^4 coarse levels with d = 56; K5 on rank 0's slab
               of the 8^4 level on the (1, 2, 1, 1) mesh, (8, 4, 8, 8) with z
               faces, and on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and
@@ -61,6 +63,23 @@ Phases, one result line each (or a few), in order:
               11, each solved alone by solve, within 1 iteration of their
               lanes; the wall time of the batch and of the two single
               solves, and the batch's launch counts
+  4c. methods (run after phase 4b, on phase 4's solver for the API runs)
+              the other methods and setups on rough16 at full size, the
+              ini otherwise, each run with its outer iterations, exact
+              relres (complex128), wall time, host us an iteration and
+              launch counts: methods 1 and 3 with the 3-level hierarchy
+              (method 3 also with the options on, a warm solve's K6
+              launches set beside phase 7's red-black ones), SAP alone
+              (method 2, interpolation 0) and method 4 reach < 1e-10
+              within the ini's restarts; methods -1, 0 and 5 reach it or
+              stop at iterations between restarts x maximum of restarts,
+              with an exact relres within 1 % of the solver's own; then
+              shift_update(m0 + 0.01) and a solve with no setup run between,
+              update_setup(1) and a solve, solve(x0 = that solution) in 0
+              iterations, write_test_vectors and a fresh Solver with
+              interpolation 4 that reads them bit for bit and solves, an
+              interpolation-1 setup and solve, and rough16 with open time
+              boundaries (bc 0, U_T of the last slice zeroed), each < 1e-10
   5. sharded  the domain-decomposed main path: the same solve on a
               (1, 2, 1, 1) t/z process grid, two ranks spawned on this one
               card with the "gloo" transport (faces and sums cross the host:
@@ -87,8 +106,9 @@ Phases, one result line each (or a few), in order:
 
 The second-to-last lines are a JSON summary of the kernels (launches of
 K1-K4 from phase 4, K5 from phase 5, K4-bf16 and K6 from phase 7, K5-bf16
-from phase 8; the times of the first case and, under "cases", of every
-case of phase 3) and the card's nvidia-smi line; the last line is
+from phase 8, and under "launches_by_path" those of every path run; the
+times of the first case and, under "cases", of every case of phase 3) and
+the card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before that
 line; so does a machine without CUDA.
 """
@@ -369,7 +389,7 @@ def check_kernels(results):
     from ddalphaamg_tpu_torch import io, utils
     from ddalphaamg_tpu_torch.geometry import Geometry
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
-    from ddalphaamg_tpu_torch.operators.stencil import ODD, WilsonStencilSoA, herm_inv
+    from ddalphaamg_tpu_torch.operators.stencil import EVEN, ODD, WilsonStencilSoA, herm_inv
     from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
 
     dev = torch.device("cuda")
@@ -409,11 +429,24 @@ def check_kernels(results):
                         lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat, parity), dtype,
                         dslash_work("K2", phi, s.links_intra, parity=parity),
                         dslash_library(s.links_intra, phi, lat, parity=parity))
+            if B == 1:      # method 4's D_eo / D_oe: the full links, one parity
+                for parity, sites in ((EVEN, "even sites"), (ODD, "odd sites")):
+                    compare(results, "K2", f"K2 hop (full links, {sites}) {lab}",
+                            lambda: cuda_dslash.hopping(s.links, phi, lat, parity),
+                            lambda: fast.dslash_hopping_soa(s.links, phi, lat, parity), dtype,
+                            dslash_work("K2", phi, s.links, parity=parity),
+                            dslash_library(s.links, phi, lat, parity=parity))
             compare(results, "K3", f"K3 clover {lab}",
                     lambda: cuda_dslash.clover(s.cdiag, s.coff, phi, lat),
                     lambda: fast.clover_apply_soa(s.cdiag, s.coff, phi), dtype,
                     dslash_work("K3", phi, clover=(s.cdiag, s.coff)),
                     clover_library(s.cdiag, s.coff, phi, lat))
+            if B == 1:      # method 4's A_ee: the clover on the even sites
+                compare(results, "K3", f"K3 clover even sites {lab}",
+                        lambda: cuda_dslash.clover(s.cdiag, s.coff, phi, lat, EVEN),
+                        lambda: fast.clover_apply_soa(s.cdiag, s.coff, phi, lat, EVEN), dtype,
+                        dslash_work("K3", phi, clover=(s.cdiag, s.coff), parity=EVEN),
+                        clover_library(s.cdiag, s.coff, phi, lat, EVEN))
             # the odd-site inverse from its compact storage (the stencil's own,
             # and at batch 1 that of a slab at an odd global offset)
             for off in (0, 1) if B == 1 else (0,):
@@ -535,10 +568,14 @@ def exact_relres(solver, x, rhs):
 
 
 def launches_since(before):
-    """The launches of each kernel since the counts `before`, as text."""
+    """The launches of each kernel since the counts `before`."""
     from ddalphaamg_tpu_torch import kernels
 
-    return ", ".join(f"{k} {n - before[k]}" for k, n in kernels.counts().items())
+    return {k: n - before[k] for k, n in kernels.counts().items()}
+
+
+def as_text(counts):
+    return ", ".join(f"{k} {n}" for k, n in counts.items())
 
 
 def check_counts(name, counts):
@@ -577,7 +614,7 @@ def main_path():
           f"coarse average {info.coarse_average:.2f}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase("solve", t0, "launches " + ", ".join(f"{k} {n}" for k, n in counts.items()))
-    phase("solve", t0, "of which in the solve " + launches_since(at_setup))
+    phase("solve", t0, "of which in the solve " + as_text(launches_since(at_setup)))
     if not finite:
         fail("solution is not a finite field of the lattice's shape")
     if not (info.converged and exact < 1e-10 and info.iterations <= 12):
@@ -639,6 +676,7 @@ def multi_path(name, solver):
                  f"{one.iterations} alone")
     phase(name, t0, f"batch of {len(infos)} {batch:.3f} s against {sum(singles) / 2:.3f} s "
           f"a single solve ({len(infos)} singles ~ {len(infos) * sum(singles) / 2:.3f} s)")
+    return counts
 
 
 def direct_path(single_iterations, single_warm):
@@ -675,7 +713,7 @@ def direct_path(single_iterations, single_warm):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase(name, t0, "launches (setup and first solve) "
           + ", ".join(f"{k} {n}" for k, n in counts.items()))
-    phase(name, t0, "launches in the warm solve " + warm)
+    phase(name, t0, "launches in the warm solve " + as_text(warm))
     finite = all(bool(np.isfinite(a).all()) and a.shape == (*solver.lattice, 4, 3)
                  for a in (x, x2))
     if not finite:
@@ -688,7 +726,156 @@ def direct_path(single_iterations, single_warm):
         if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
             fail(f"{name}: {lab} solve ran the coarsest GCR")
     check_counts(name, counts)
-    return counts, info.iterations, solver
+    return counts, warm, info.iterations, solver
+
+
+def method_params(method, interpolation=2, **options):
+    """rough16.ini with another method and interpolation (0: SAP alone),
+    and options set on the parsed parameters."""
+    params = rough16_params()
+    params.method, params.interpolation = method, interpolation
+    for key, val in options.items():
+        setattr(params, key, val)
+    return params
+
+
+def method_run(paths, label, solver, rhs, kind, needed, setup=True, x0=None):
+    """One run of phase "methods": setup (unless setup is False) and a solve
+    of rhs from x0, with the launches of each kernel in that run; kind
+    "converge" asks for relres < 1e-10 within the ini's restarts, "honest"
+    for relres < 1e-10 or the ini's last iteration, and either way an exact
+    relres within 1 % of the solver's own.  Returns (x, SolveInfo)."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    setup_s = solver.setup().setup_time if setup else 0.0
+    x, info = solver.solve(rhs, x0=x0)
+    counts = kernels.counts()
+    paths[label] = counts
+    exact = exact_relres(solver, x, rhs)
+    per_it = 1e6 * info.solve_time / max(info.iterations, 1)
+    phase("methods", t0, f"{label}: setup {setup_s:.3f} s, solve {info.solve_time:.3f} s, "
+          f"{info.iterations} iterations ({per_it:.0f} us each), exact relres {exact:.6e} "
+          f"(solver {info.relres:.6e}); launches "
+          + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+    if not (np.isfinite(x).all() and x.shape == rhs.shape):
+        fail(f"methods, {label}: the solution is not a finite field of the lattice's shape")
+    if kind == "converge" and not (info.converged and exact < 1e-10):
+        fail(f"methods, {label}: relres {exact:.3e} not < 1e-10 within the ini's restarts")
+    if kind == "honest":
+        p = solver.p
+        if not (info.converged or info.iterations == p.restart_length * p.max_restarts):
+            fail(f"methods, {label}: stopped after {info.iterations} iterations unconverged")
+        if abs(exact - info.relres) > 0.01 * exact:
+            fail(f"methods, {label}: exact relres {exact:.6e} and the solver's "
+                 f"{info.relres:.6e} differ by more than 1 %")
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        fail(f"methods, {label}: the path never launched {missing}")
+    return x, info
+
+
+def methods_path(paths, solver):
+    """Phase "methods": the other methods and the library API on rough16 at
+    full size (the ini otherwise); `solver` is phase 4's, set up."""
+    import tempfile
+
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import api, config, io
+    from ddalphaamg_tpu_torch.mg.hierarchy import Multigrid
+
+    fine = ("K1", "K2", "K3")
+    mg = fine + ("K4",)
+    rhs = config.make_rhs("ones", solver.lattice)
+
+    def run(label, params, kind, needed, **kw):
+        s = api.Solver(params, device="cuda")
+        s.read_conf()
+        return s, method_run(paths, label, s, rhs, kind, needed, **kw)
+
+    # methods 1 and 3 with multigrid; method 3 with the options on, its K6
+    # launches in a warm solve against red-black's (phase 7)
+    run("method 1 (additive SAP) + multigrid", method_params(1), "converge", mg)
+    run("method 3 (16-colour SAP) + multigrid", method_params(3), "converge", mg)
+    s3, _ = run("method 3 + multigrid, options on",
+                method_params(3, **{k: True for k in OPTIONS}), "converge",
+                fine + ("K4-bf16", "K6"))
+    method_run(paths, "method 3 + multigrid, options on, warm solve", s3, rhs, "converge",
+               fine + ("K4-bf16", "K6"), setup=False)
+    del s3
+    # the methods without multigrid
+    run("method 2, SAP alone", method_params(2, 0), "converge", fine)
+    run("method 4, odd-even", method_params(4, 0), "converge", fine)
+    for method, what in ((-1, "CGN"), (0, "GMRES"), (5, "BiCGstab preconditioner")):
+        run(f"method {method}, {what}", method_params(method, 0), "honest", ("K1",))
+
+    # the library API on phase 4's solver
+    m0 = solver.p.m0
+    solver.shift_update(m0 + 0.01)
+    if solver.mg.fine.dense_inv is not None:
+        fail("methods: shift_update kept a stored inverse")
+    bootstrap = Multigrid.bootstrap_setup
+    Multigrid.bootstrap_setup = lambda *a, **k: fail("shift_update ran a setup")
+    try:
+        method_run(paths, f"shift_update(m0 + 0.01 = {m0 + 0.01:g}), no setup", solver, rhs,
+                   "converge", mg, setup=False)
+    finally:
+        Multigrid.bootstrap_setup = bootstrap
+    solver.shift_update(m0)
+    t0 = time.perf_counter()
+    solver.update_setup(1)
+    phase("methods", t0, f"update_setup(1) {solver.status.setup_time:.3f} s (setup total)")
+    x, info = method_run(paths, "update_setup(1)", solver, rhs, "converge", mg, setup=False)
+    _, again = method_run(paths, "solve(x0 = converged x)", solver, rhs, "converge", (),
+                          setup=False, x0=x)
+    if again.iterations != 0:
+        fail(f"methods: a solve from a converged x took {again.iterations} iterations")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        # three levels: only the fine test vectors come from the file, depth 1
+        # keeps its initial ones (the JAX package's set_test_vectors, the
+        # reference's read_tv_from_file + re_setup), so the reader's
+        # iterations may exceed the writer's; its fine vectors are the writer's
+        path = os.path.join(tmp, "rough16_tv")
+        solver.write_test_vectors(path)
+        reader = method_params(2, 4, tv_io_file_name=path, tv_io_single_file=True)
+        r, (_, rinfo) = run("interpolation 4, three levels (update_setup's test vectors)",
+                            reader, "converge", mg)
+        if not np.array_equal(r.mg.get_test_vectors(), solver.mg.get_test_vectors()):
+            fail("methods: interpolation 4 read other test vectors than were written")
+        del r
+        # two levels: the file fixes the whole hierarchy, so the reader
+        # solves in the writer's iterations (+-1); one file a vector
+        w, (_, winfo) = run("two levels, interpolation 2 (writes its test vectors)",
+                            method_params(2, num_levels=2), "converge", mg)
+        path = os.path.join(tmp, "rough16_2lvl_tv")
+        w.write_test_vectors(path, single_file=False)
+        del w
+        reader = method_params(2, 4, num_levels=2, tv_io_file_name=path,
+                               tv_io_single_file=False)
+        _, (_, r2info) = run("two levels, interpolation 4 (reads them)", reader, "converge", mg)
+        if abs(r2info.iterations - winfo.iterations) > 1:
+            fail(f"methods: interpolation 4 at two levels took {r2info.iterations} "
+                 f"iterations, the writer {winfo.iterations}")
+    phase("methods", time.perf_counter(), f"interpolation 4: three levels {rinfo.iterations} "
+          f"iterations (writer {info.iterations}), two levels {r2info.iterations} "
+          f"(writer {winfo.iterations})")
+    run("interpolation 1 (two-level extension setup)", method_params(2, 1), "converge", mg)
+    # open boundaries: rough16 with U_T on the last slice zeroed
+    params = method_params(2)
+    params.bc = 0
+    U, _ = io.read_gauge_field(params.configuration, anti_periodic=params.anti_pbc)
+    U[0, -1] = 0
+    s = api.Solver(params, device="cuda")
+    s.set_conf(U, links_have_bc=True)
+    method_run(paths, "bc 0 (open), U_T of the last slice zeroed", s, rhs, "converge", mg)
+    T = s.op.links.shape[1]
+    if s.op.links[0, [0, T - 2, T - 1]].abs().max() != 0:
+        fail("methods: bc 0 kept hopping links across the time boundary")
 
 
 def sharded_rank(mesh, device, options=False):
@@ -783,11 +970,15 @@ def main():
     check_kernels(results)
     phase("kernels", t0, "all kernels agree with their plain versions")
 
+    paths = {}        # the launch counts of every path run, by name
     counts, iterations, warm, solver = main_path()
-    multi_path("multi", solver)
+    paths["solve"] = dict(counts)
+    paths["multi"] = multi_path("multi", solver)
+    methods_path(paths, solver)
     del solver
     torch.cuda.empty_cache()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)
+    paths["sharded (rank 0)"] = sharded
     counts["K5"] = sharded["K5"]
     n = torch.cuda.device_count()
     if n >= 2:
@@ -797,16 +988,23 @@ def main():
     else:
         print(f"[nccl] not run: {n} card (the nccl transport needs a card per rank)",
               flush=True)
-    direct, direct_iterations, solver = direct_path(iterations, warm)
-    multi_path("multi-direct", solver)
+    direct, direct_warm, direct_iterations, solver = direct_path(iterations, warm)
+    paths["direct"], paths["direct, warm solve"] = direct, direct_warm
+    print(f"[methods] K6 launches in a warm solve with the options on: 16 colours "
+          f"{paths['method 3 + multigrid, options on, warm solve']['K6']}, red-black "
+          f"{direct_warm['K6']}", flush=True)
+    paths["multi-direct"] = multi_path("multi-direct", solver)
     del solver
     torch.cuda.empty_cache()
     counts["K4-bf16"], counts["K6"] = direct["K4-bf16"], direct["K6"]
     sharded_direct = sharded_path("sharded-direct", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2,
                                   direct_iterations, options=True)
+    paths["sharded-direct (rank 0)"] = sharded_direct
     counts["K5-bf16"] = sharded_direct["K5-bf16"]
     summary = [dict(name=k.name, route=k.route, source=k.source,
-                    replaces=k.replaces, launches=counts[key], **results[key])
+                    replaces=k.replaces, launches=counts[key],
+                    launches_by_path={p: c[key] for p, c in paths.items() if c[key]},
+                    **results[key])
                for key, k in kernels.KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -1,20 +1,33 @@
 """Library API, mirroring the reference C API (dd_alpha_amg.h:42-84) and the
-JAX package's api.Solver: set_conf / setup / solve.
+JAX package's api.Solver: set_conf / setup / update_setup / solve /
+apply_preconditioner / shift_update.
 
     params = config.parse_ini("sample.ini")
     solver = api.Solver(params, device="cuda")
     plaq = solver.set_conf(U)            # U [4,T,Z,Y,X,3,3] numpy, raw links
-    solver.setup()                       # hierarchy + bootstrap
-    x, info = solver.solve(rhs, tol=1e-10)
+    solver.setup()                       # preconditioner (hierarchy + setup)
+    x, info = solver.solve(rhs, tol=1e-10, x0=None)
     xs, infos = solver.solve_multi(rhs_batch)   # [B, T, Z, Y, X, 4, 3]
+    solver.shift_update(m0 + 0.01)       # next solves at another mass
+    solver.update_setup(1)               # one more setup iteration
 
-Ported: method 2 (FGMRES + red-black SAP) with interpolation 2 (bootstrap
-F-cycle setup) and two or more levels, mixed precision 0 (complex128 inner
-solve) or 1 and 2 (complex64 inner solve).  The outer loop refreshes the
-true residual in complex128 once per restart and runs each restart's inner
-solve as flexible GCR preconditioned by the multigrid cycle.  It runs a
-batch of right-hand sides (solve_multi; solve is batch 1), each with its
-own tolerances and stop.
+Methods (the reference's `method`): -1 CGN; 0 GMRES; 1, 2, 3 FGMRES with
+additive, red-black or sixteen-colour SAP, the smoother of an adaptive
+multigrid hierarchy when number of levels > 1 and interpolation > 0 (1 the
+two-level extension setup, 2 the bootstrap F-cycle setup, 4 test vectors
+read from `tv io file name`), else the whole preconditioner; 4 FGMRES with
+the odd-even Schur GMRES preconditioner; 5 FGMRES with a BiCGstab
+preconditioner (tol 1e-1, 50 iterations).  Preconditioners run in the
+inner precision: complex128 with mixed precision 0, complex64 with 1 or 2.
+
+The multigrid methods run the port's outer loop (_solve_mp): the true
+residual in complex128 once per restart, each restart's inner solve a
+flexible GCR preconditioned by the multigrid cycle, over a batch of
+right-hand sides (solve_multi; solve is batch 1), each lane with its own
+tolerance and stop.  The other methods run the host-driven Krylov solvers
+of solvers/ (one right-hand side at a time): CGN on D and D^dagger in
+complex128, FGMRES in complex128, or with mixed precision 2 FGMRES with a
+complex128 outer and complex64 inner loop, as the JAX package's CPU path.
 
 The JAX package's accelerator options are ported and off unless the ini
 turns them on (`coarse block bf16: 1`, `coarsest direct: 1`,
@@ -25,12 +38,19 @@ builds its inverse at any size.  The JAX package turns all three on by
 default on its accelerator (its api.py:228-238); the CUDA defaults wait
 for a GPU benchmark.
 
-With a mesh (parallel/mesh.SolverMesh, one process per rank) the solve is
-domain-decomposed over a t/z process grid: every rank computes the
-plaquette and the complex128 clover on the global field and keeps its slab,
-solve scatters the right-hand side, the outer loop runs on slabs with
-global norms, and the solution is gathered so that solve returns the same
-global array on every rank.
+Time boundaries (`bc`, else from `antiperiodic boundary conditions`): 2
+anti-periodic, 1 periodic, 0 open (Dirichlet: the clover from the whole
+field, the hopping time links zeroed at global t in {0, T-2, T-1}, and the
+field's U_T on the last slice must be zero; reference
+dd_alpha_amg_set_conf, src/dd_alpha_amg.c:195-237).
+
+With a mesh (parallel/mesh.SolverMesh, one process per rank) the
+multigrid methods are domain-decomposed over a t/z process grid: every
+rank computes the plaquette and the complex128 clover on the global field
+and keeps its slab, solve scatters the right-hand side, the outer loop runs
+on slabs with global norms, and the solution is gathered so that solve
+returns the same global array on every rank.  The other methods raise on a
+mesh (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -48,10 +68,14 @@ from .gauge import average_plaquette
 from .geometry import Geometry
 from .mg.hierarchy import LevelConfig, MGConfig, Multigrid
 from .operators import fast
-from .operators.stencil import WilsonStencilSoA
-from .operators.wilson import WilsonOperator
+from .operators.oddeven import OddEvenPreconditioner
+from .operators.stencil import WilsonStencilSoA, shift_stencil
+from .operators.wilson import WilsonOperator, shift_diagonal
 from .parallel import comm
 from .parallel.mesh import gather_field, local_lattice, replicate, shard_operator
+from .smoothers import SchwarzPreconditioner
+from .solvers.fgmres import fgmres, fgmres_mp
+from .solvers.krylov import bicgstab, cgn
 from .utils import pin_full_precision
 
 
@@ -97,6 +121,12 @@ class Solver:
         self._op_slab: Optional[WilsonOperator] = None
         self.outer: Optional[WilsonStencilSoA] = None
         self.mg: Optional[Multigrid] = None
+        # the preconditioner of the solve: the Multigrid, or that of a
+        # method without multigrid (None for methods -1 and 0)
+        self.preconditioner = None
+        # the fine stencil in the inner precision of the methods without
+        # multigrid; rebuilt whenever the operator changes
+        self._inner: Optional[WilsonStencilSoA] = None
         self.status = SetupStatus()
         self._inner_dtype = (torch.complex64 if params.mixed_precision
                              else torch.complex128)
@@ -111,6 +141,19 @@ class Solver:
             return self.lattice
         return local_lattice(self.mesh, self.lattice)
 
+    @property
+    def multigrid(self) -> bool:
+        """Whether the method runs the multigrid hierarchy (methods 1-3 with
+        more than one level and an interpolation)."""
+        p = self.p
+        if not (p.method in (1, 2, 3) and p.num_levels > 1 and p.interpolation > 0):
+            return False
+        if p.interpolation not in (1, 2, 4):
+            raise ValueError(f"interpolation: {p.interpolation} unsupported (0 off, 1 "
+                             "two-level extension, 2 bootstrap F-cycle, 4 test vectors "
+                             "from a file)")
+        return True
+
     # --- configuration -------------------------------------------------
 
     def read_conf(self, path: Optional[str] = None):
@@ -123,24 +166,43 @@ class Solver:
         """Store the gauge field and build the Dirac operator in complex128;
         returns the average plaquette (reference dd_alpha_amg_set_conf)."""
         bc = self.p.bc if self.p.bc is not None else (2 if self.p.anti_pbc else 1)
-        if bc == 0:
-            raise NotImplementedError("Dirichlet (open) time boundaries are not "
-                                      "ported yet (ROADMAP A, still to port 4)")
         U = np.array(U, dtype=np.complex128)
         if bc == 2 and not links_have_bc:
             U[0, -1] *= -1.0
+        if bc == 0 and np.abs(U[0, -1]).max() != 0.0:
+            raise ValueError("bc 0 (open): the gauge field does not fit the boundary "
+                             "conditions (U_T on the last time slice must be zero)")
         Ud = torch.as_tensor(U, device=self.device)
         self.op = WilsonOperator.from_gauge(Ud, m0=self.p.m0, csw=self.p.csw)
+        if bc == 0:       # the clover keeps the whole field, the hops do not
+            links = self.op.links.clone()
+            T = links.shape[1]
+            links[0, [0, T - 2, T - 1]] = 0
+            self.op = self.op._replace(links=links)
         self._op_slab = self.op
         if self.mesh is not None:
             self._op_slab = shard_operator(self.mesh, self.op)
-        geom = Geometry(lattice=self.local_lattice,
-                        block=tuple(self.p.depth[0].block_lattice))
         # the outer loop's true residual: complex128 operator through K1
-        self.outer = WilsonStencilSoA.build(self._op_slab, geom,
+        self.outer = WilsonStencilSoA.build(self._op_slab, self._geom(),
                                             dtype=torch.complex128, mesh=self.mesh)
+        self._inner = None
         self.status.gauge_updates_since_setup += 1
         return average_plaquette(Ud)
+
+    def _geom(self) -> Geometry:
+        """The fine level's geometry (this rank's slab under a mesh)."""
+        return Geometry(lattice=self.local_lattice,
+                        block=tuple(self.p.depth[0].block_lattice))
+
+    def _inner_stencil(self) -> WilsonStencilSoA:
+        """The fine stencil in the inner precision (the methods without
+        multigrid; self.outer itself for mixed precision 0)."""
+        if self._inner_dtype == torch.complex128:
+            return self.outer
+        if self._inner is None:
+            self._inner = WilsonStencilSoA.build(self._op_slab, self._geom(),
+                                                 dtype=self._inner_dtype, mesh=self.mesh)
+        return self._inner
 
     # --- setup ---------------------------------------------------------
 
@@ -173,27 +235,123 @@ class Solver:
 
     def build_hierarchy(self) -> Multigrid:
         """The multigrid hierarchy with its initial (smoothed random) test
-        vectors, before any bootstrap iteration."""
+        vectors, before any setup iteration."""
         if self.op is None:
             raise RuntimeError("call set_conf first")
-        p = self.p
-        if not (p.method == 2 and p.interpolation == 2 and p.num_levels > 1):
-            raise NotImplementedError(
-                f"method {p.method} with interpolation {p.interpolation} and "
-                f"{p.num_levels} levels is not ported yet; the port runs "
-                "method 2, interpolation 2, >= 2 levels (ROADMAP A, still to port 4)")
-        self.mg = Multigrid(self._op_slab, self._mg_config())
+        if not self.multigrid:
+            raise ValueError(f"method {self.p.method} with interpolation "
+                             f"{self.p.interpolation} and {self.p.num_levels} levels "
+                             "runs no multigrid")
+        self.mg = self.preconditioner = Multigrid(self._op_slab, self._mg_config())
         return self.mg
 
     def setup(self) -> SetupStatus:
-        """Build the preconditioner (reference dd_alpha_amg_setup): the
-        hierarchy, then the bootstrap setup."""
+        """Build the preconditioner (reference dd_alpha_amg_setup; the JAX
+        package's api.py:262-316): the hierarchy and its setup for the
+        multigrid methods, else the method's own preconditioner."""
+        if self.op is None:
+            raise RuntimeError("call set_conf first")
+        p = self.p
         t0 = time.perf_counter()
-        self.build_hierarchy().bootstrap_setup()
+        self.mg = None
+        if self.multigrid:
+            mg = self.build_hierarchy()       # also the preconditioner
+            if p.interpolation == 4:
+                if not p.tv_io_file_name:
+                    raise ValueError("interpolation 4 needs a `test vector io file name`")
+                n = p.depth[0].test_vectors
+                tvs = dio.read_test_vectors(p.tv_io_file_name, self.lattice, n=n,
+                                            single_file=p.tv_io_single_file)
+                mg.set_test_vectors(tvs.reshape(n, *self.lattice, 4, 3))
+            elif p.interpolation == 2:
+                mg.bootstrap_setup()
+            else:
+                mg.twolevel_extension_setup()
+        else:
+            self.preconditioner = self._plain_preconditioner()
         self._sync()
         self.status.setup_time = self._wall(time.perf_counter() - t0)
         self.status.gauge_updates_since_setup = 0
         return self.status
+
+    def _plain_preconditioner(self):
+        """The preconditioner of a method without multigrid, on the fine
+        stencil in the inner precision (None for methods -1 and 0)."""
+        p = self.p
+        self._refuse_mesh()
+        if p.method in (-1, 0):
+            return None
+        d0 = p.depth[0]
+        s = self._inner_stencil()
+        if p.method in (1, 2, 3):
+            return SchwarzPreconditioner(s, block_iter=d0.block_iter,
+                                         cycles=d0.preconditioner_cycles,
+                                         odd_even=p.odd_even, scheme=_SCHEMES[p.method])
+        if p.method == 4:
+            return OddEvenPreconditioner(s, block_iter=d0.block_iter,
+                                         cycles=d0.preconditioner_cycles)
+        if p.method == 5:
+            def bicgstab_prec(eta):
+                return bicgstab(s.full_op, eta.to(s.dtype), tol=1e-1, max_iter=50).x
+            return bicgstab_prec
+        raise ValueError(f"method: {p.method} unsupported (-1 to 5)")
+
+    def _refuse_mesh(self):
+        """The methods without multigrid run on one rank only: their host
+        Krylov loops take rank-local inner products."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"method {self.p.method} without multigrid on a "
+                                      "process grid is not ported (ROADMAP A.12)")
+
+    def update_setup(self, iterations: int = 1) -> SetupStatus:
+        """More setup iterations of the configured kind on the existing
+        hierarchy (reference dd_alpha_amg_setup_update)."""
+        if self.mg is None:
+            raise RuntimeError("update_setup needs a multigrid setup")
+        t0 = time.perf_counter()
+        if self.p.interpolation == 1:
+            self.mg.twolevel_extension_setup(iterations)
+        else:
+            self.mg.bootstrap_setup(iterations)
+        self._sync()
+        self.status.setup_time += self._wall(time.perf_counter() - t0)
+        return self.status
+
+    def shift_update(self, new_m0: float):
+        """Set the mass for the next solves without a new setup (reference
+        dd_alpha_amg_set_mass_for_next_solve / shift_update,
+        src/dirac_generic.c:504-551): the operator, its slab and the
+        complex128 outer stencil are shifted, and so is every level of the
+        hierarchy (Multigrid.shift_update); a preconditioner without
+        multigrid is built anew."""
+        delta = new_m0 - self.p.m0
+        if delta == 0.0:
+            return
+        self.p.m0 = new_m0
+        self.op = shift_diagonal(self.op, delta)
+        self._op_slab = (self.op if self.mesh is None
+                         else shift_diagonal(self._op_slab, delta))
+        self.outer = shift_stencil(self.outer, delta, self._op_slab)
+        self._inner = None
+        if self.mg is not None:
+            self.mg.shift_update(delta, self._op_slab)
+        elif self.preconditioner is not None:
+            self.preconditioner = self._plain_preconditioner()
+
+    def write_test_vectors(self, path: Optional[str] = None,
+                           single_file: Optional[bool] = None):
+        """Write the fine level's test vectors (reference vector_io WRITE,
+        src/io.c:951), for a later setup with `interpolation: 4`; under a
+        mesh rank 0 writes."""
+        if self.mg is None:
+            raise RuntimeError("no multigrid setup to write")
+        path = path or self.p.tv_io_file_name
+        single = self.p.tv_io_single_file if single_file is None else single_file
+        tvs = self.mg.get_test_vectors()
+        if self.mesh is None or self.mesh.rank == 0:
+            dio.write_test_vectors(path, tvs.reshape(tvs.shape[0], *self.lattice, 12),
+                                   single_file=single,
+                                   header={"m0": self.p.m0, "csw": self.p.csw})
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -221,6 +379,13 @@ class Solver:
             return b
         return self.outer.slab(replicate(self.mesh, b))
 
+    def _gather(self, x) -> np.ndarray:
+        """Dof-major (slabs of) fields [*B, 12, V_l] -> global numpy
+        [*B, T, Z, Y, X, 4, 3] on every rank."""
+        if self.mesh is not None:
+            x = gather_field(self.mesh, x, self.local_lattice)
+        return fast.spinor_from_soa(x, self.lattice).cpu().numpy()
+
     # --- solves --------------------------------------------------------
 
     def apply_operator(self, v: torch.Tensor) -> torch.Tensor:
@@ -228,38 +393,56 @@ class Solver:
         [*, 12, V_l] under a mesh)."""
         return self.outer.full_op(v)
 
-    def solve(self, rhs=None, tol: Optional[float] = None):
-        """Solve D x = rhs; rhs and x are numpy [T, Z, Y, X, 4, 3] (batch 1
-        of solve_multi)."""
+    def apply_preconditioner(self, v):
+        """The preconditioner applied to a numpy field [T, Z, Y, X, 4, 3]
+        (reference dd_alpha_amg_preconditioner); returns numpy of that shape
+        (the field itself for methods -1 and 0)."""
+        if self.preconditioner is None and self.p.method not in (-1, 0):
+            raise RuntimeError("call setup first")
+        b = self._scatter(v)
+        if self.preconditioner is None:
+            return self._gather(b)
+        return self._gather(self.preconditioner(b).to(torch.complex128))
+
+    def solve(self, rhs=None, tol: Optional[float] = None, x0=None):
+        """Solve D x = rhs from x0 (zero if None); rhs, x0 and x are numpy
+        [T, Z, Y, X, 4, 3] (batch 1 of solve_multi)."""
         if rhs is None:
             rhs = make_rhs(self.p.right_hand_side, self.lattice, seed=self.p.seed)
-        x, infos = self.solve_multi(np.asarray(rhs)[None], tol)
+        x, infos = self.solve_multi(np.asarray(rhs)[None], tol,
+                                    None if x0 is None else np.asarray(x0)[None])
         return x[0], infos[0]
 
-    def solve_multi(self, rhs_batch, tol: Optional[float] = None):
+    def solve_multi(self, rhs_batch, tol: Optional[float] = None, x0=None):
         """Solve D x_i = rhs_i for a stack of right-hand sides rhs_batch
-        [B, T, Z, Y, X, 4, 3] (numpy) with one setup, all B systems
-        together (the JAX package's Solver.solve_multi, api.py:792-839):
-        every cycle, GCR and kernel runs the batch, and each system stops
-        on its own.  Returns (x [B, T, Z, Y, X, 4, 3], [SolveInfo] * B);
-        as in the JAX package's batched path, solve_time is the batch's
-        wall time over B, the coarse averages are over the batch's
-        iterations and coarsest_inverse_applies is the batch's over B."""
-        if self.mg is None:
+        [B, T, Z, Y, X, 4, 3] (numpy) from the initial guesses x0 (same
+        shape, or None for zeros) with one setup.  The multigrid methods
+        run all B systems together (the JAX package's Solver.solve_multi,
+        api.py:792-839): every cycle, GCR and kernel runs the batch, and
+        each system stops on its own; as in the JAX package's batched path,
+        solve_time is the batch's wall time over B, the coarse averages are
+        over the batch's iterations and coarsest_inverse_applies is the
+        batch's over B.  The other methods solve the systems one after the
+        other.  Returns (x [B, T, Z, Y, X, 4, 3], [SolveInfo] * B)."""
+        if self.op is None:
+            raise RuntimeError("call set_conf first")
+        if (self.mg is None if self.multigrid
+                else self.preconditioner is None and self.p.method not in (-1, 0)):
             raise RuntimeError("call setup first")
         tol = self.p.tol if tol is None else tol
         rhs_batch = np.asarray(rhs_batch)
+        if self.mg is None:
+            return self._solve_krylov_multi(rhs_batch, tol, x0)
         B = rhs_batch.shape[0]
         self.mg.stats.update(coarse_iterations=0.0, coarse_matvecs=0.0,
                              coarsest_inverse_applies=0.0)
         t0 = time.perf_counter()
         b = self._scatter(rhs_batch)
-        x, iters, relres, resvec = self._solve_mp(b, tol)
-        if self.mesh is not None:
-            x = gather_field(self.mesh, x, self.local_lattice)
+        x, iters, relres, resvec = self._solve_mp(
+            b, tol, None if x0 is None else self._scatter(x0))
+        x_log = self._gather(x)
         self._sync()
         dt = self._wall(time.perf_counter() - t0)
-        x_log = fast.spinor_from_soa(x, self.lattice).cpu().numpy()
         st = self.mg.stats
         total = max(int(iters.sum()), 1)
         infos = [SolveInfo(iterations=int(iters[i]), relres=float(relres[i]),
@@ -271,19 +454,20 @@ class Solver:
                  for i in range(B)]
         return x_log, infos
 
-    def _solve_mp(self, b, tol):
+    def _solve_mp(self, b, tol, x0=None):
         """Outer loop of every lane of b [B, 12, V]: once per restart the
-        complex128 true residual of all lanes (one K1 apply at batch B),
-        then one inner flexible-GCR restart of all lanes in the inner
-        precision, each lane asked to reduce its residual by what remains
-        to be done, but by no more than inner_tol_clip; lanes that have
-        converged are masked off and keep their x.  The default clip is
-        1e-5 for a complex64 inner solve (the reference's inner threshold
-        MAX(tol, 1e-5), src/linsolve.c:44: an f32 sweep cannot verify a
-        deeper reduction and stalls when asked to) and none for a
-        complex128 inner solve, which then runs as one Krylov space like
-        the reference's double-precision FGMRES.  Returns (x, iterations
-        [B], relres [B], resvec: the relres of every restart)."""
+        complex128 true residual of all lanes (one K1 apply at batch B;
+        also at restart 0 when x0 is given), then one inner flexible-GCR
+        restart of all lanes in the inner precision, each lane asked to
+        reduce its residual by what remains to be done, but by no more than
+        inner_tol_clip; lanes that have converged are masked off and keep
+        their x.  The default clip is 1e-5 for a complex64 inner solve (the
+        reference's inner threshold MAX(tol, 1e-5), src/linsolve.c:44: an
+        f32 sweep cannot verify a deeper reduction and stalls when asked
+        to) and none for a complex128 inner solve, which then runs as one
+        Krylov space like the reference's double-precision FGMRES.  Returns
+        (x, iterations [B], relres [B], resvec: the relres of every
+        restart)."""
         p = self.p
         if p.inner_tol_clip is not None:
             clip = float(p.inner_tol_clip)
@@ -291,11 +475,11 @@ class Solver:
             clip = 1e-5 if self._inner_dtype == torch.complex64 else 0.0
         norm_b = self._norms(b)
         norm_b = np.where(norm_b == 0, 1.0, norm_b)
-        x = torch.zeros_like(b)
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
         iters = torch.zeros(b.shape[0], device=b.device)
         resvec = []
         for restart in range(p.max_restarts + 1):
-            r = b if restart == 0 else b - self.apply_operator(x)
+            r = b if (restart == 0 and x0 is None) else b - self.apply_operator(x)
             nr = self._norms(r)
             relres = nr / norm_b
             resvec.append(relres)
@@ -309,6 +493,45 @@ class Solver:
             x = x + z.to(torch.complex128)
             iters = iters + it
         return x, iters.cpu().numpy().astype(int), relres, resvec
+
+    def _solve_krylov_multi(self, rhs_batch, tol, x0):
+        """The methods without multigrid, one right-hand side after the
+        other (the JAX package's solve dispatch, api.py:937-979, without its
+        accelerator branches)."""
+        self._refuse_mesh()
+        xs, infos = [], []
+        for i in range(rhs_batch.shape[0]):
+            t0 = time.perf_counter()
+            res = self._solve_krylov(self._scatter(rhs_batch[i]), tol,
+                                     None if x0 is None else self._scatter(x0[i]))
+            x = self._gather(res.x)
+            self._sync()
+            xs.append(x)
+            infos.append(SolveInfo(iterations=res.iterations, relres=res.relres,
+                                   converged=res.converged,
+                                   solve_time=time.perf_counter() - t0,
+                                   resvec=res.resvec))
+        return np.stack(xs), infos
+
+    def _solve_krylov(self, b, tol, x0):
+        """One system [12, V]: method -1 CGN, mixed precision 2 FGMRES with a
+        complex64 inner loop, else FGMRES in complex128."""
+        p = self.p
+        if p.method == -1:
+            return cgn(self.outer.full_op, self.outer.dagger_op, b, x0=x0, tol=tol,
+                       max_iter=p.restart_length * p.max_restarts)
+        if p.mixed_precision == 2:
+            inner = self._inner_stencil()
+
+            def apply_mp(v):        # keeps v's precision
+                return (self.outer if v.dtype == torch.complex128 else inner).full_op(v)
+
+            return fgmres_mp(apply_mp, b, x0=x0, preconditioner=self.preconditioner,
+                             tol=tol, restart_length=p.restart_length,
+                             max_restarts=p.max_restarts, inner_dtype=inner.dtype)
+        return fgmres(self.outer.full_op, b, x0=x0, preconditioner=self.preconditioner,
+                      tol=tol, restart_length=p.restart_length,
+                      max_restarts=p.max_restarts)
 
     def true_residual(self, x, rhs) -> float:
         """||rhs - D x|| / ||rhs|| in complex128 (the reference's

@@ -3,9 +3,10 @@
     python -m ddalphaamg_tpu_torch.cli <input.ini> [--device cuda|cpu] [--tol T]
 
 Reads a reference-format input file, builds the solver on the device, runs
-the setup and the solve, and prints a reference-shaped summary.  A
-configuration path in the ini that does not exist is looked up beside the
-ini file.
+the setup and the solve, and prints a reference-shaped summary.  Every
+`method` (-1 to 5) and `interpolation` (0, 1, 2, 4; 4 reads the test
+vectors from `test vector io file name`) of the ini runs.  A configuration
+path in the ini that does not exist is looked up beside the ini file.
 
 An ini whose `d0 local lattice` is smaller than its `d0 global lattice`
 requests the process grid global / local (the reference's run script
@@ -91,8 +92,9 @@ def _run(params, args, mesh, device) -> int:
 
     rhs = config.make_rhs(params.right_hand_side, solver.lattice, seed=params.seed)
     x, info = solver.solve(rhs, tol=args.tol)
-    for name, sec in solver.mg.build_times.items():   # built lazily in the solve
-        say(f"{name}: built in {sec:.3f} seconds (inside the solve time)")
+    if solver.mg is not None:
+        for name, sec in solver.mg.build_times.items():   # built lazily in the solve
+            say(f"{name}: built in {sec:.3f} seconds (inside the solve time)")
     exact = solver.true_residual(x, rhs)
     say("+----------------------------------------------------------+")
     say(f"|       FGMRES iterations: {info.iterations:<6d} coarse average: {info.coarse_average:<6.2f}   |")

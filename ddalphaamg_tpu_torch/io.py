@@ -1,4 +1,5 @@
-"""Gauge-configuration IO, binary format 0 (numpy only).
+"""Gauge-configuration IO, binary format 0, and vector / test-vector IO
+(numpy only).
 
 The DDalphaAMG binary gauge format (reference src/io.c:459-560, layout in
 doc/user_doc.tex:112-146):
@@ -10,7 +11,15 @@ doc/user_doc.tex:112-146):
                   SU(3) matrices as interleaved (re, im) doubles
 
 Little-endian; big-endian files are detected by a sanity check on the
-extents.  LIME/ILDG, HDF5 and multi-file configurations are not ported yet.
+extents.  LIME/ILDG, HDF5 and multi-file configurations are not ported yet
+(ROADMAP A.7).
+
+Vector files (the reference's vector_io, src/io.c:704-1124; the JAX
+package's io.py:142-187, :231-272): an optional text preamble from a line
+"<header>" to a line "</header>", then the sites in lexicographic order, dof
+complex numbers a site as little-endian (re, im) doubles.  A test-vector
+checkpoint is one file with a header and the vectors back to back, or one
+file a vector, `path.00`, `path.01`, ...
 
 Anti-periodic boundary conditions in time are applied here by negating the
 T-direction links on the last global T-slice (reference src/io.c:538-544),
@@ -50,3 +59,90 @@ def read_gauge_field(path: str, anti_periodic: bool = True):
     if anti_periodic:
         U[T, -1] = -U[T, -1]
     return U, plaq
+
+
+def _refuse_hdf5(path: str):
+    if str(path).endswith((".h5", ".hdf5")):
+        raise NotImplementedError(
+            f"{path}: HDF5 test vectors are not ported (ROADMAP A.7)")
+
+
+def _skip_header(f) -> None:
+    """Skip an optional '<header>\\n ... </header>\\n' text preamble
+    (reference vector_io, src/io.c:733-745)."""
+    first = f.readline()
+    if first != b"<header>\n":
+        f.seek(0)
+        return
+    while True:
+        line = f.readline()
+        if not line:
+            raise ValueError("unterminated <header> block")
+        if line == b"</header>\n":
+            return
+
+
+def _header_text(fields) -> bytes:
+    lines = ["<header>"] + [f"\t{k}: {v}" for k, v in (fields or {}).items()]
+    return "\n".join(lines + ["</header>\n"]).encode()
+
+
+def _interleaved(v) -> bytes:
+    v = np.asarray(v)
+    flat = np.empty(v.size * 2, dtype="<f8")
+    flat[0::2] = v.real.ravel()
+    flat[1::2] = v.imag.ravel()
+    return flat.tobytes()
+
+
+def read_vector(path: str, lattice, dof: int = 12) -> np.ndarray:
+    """One vector [T, Z, Y, X, dof] (complex128) from a vector file."""
+    lt, lz, ly, lx = lattice
+    n = lt * lz * ly * lx * dof
+    with open(path, "rb") as f:
+        _skip_header(f)
+        data = np.fromfile(f, dtype="<f8", count=2 * n)
+    if data.size != 2 * n:
+        raise ValueError(f"{path}: truncated vector")
+    return (data[0::2] + 1j * data[1::2]).reshape(lt, lz, ly, lx, dof)
+
+
+def write_vector(path: str, v, header: dict | None = None) -> None:
+    """Write one vector (any shape, sites then dof), with a header if given."""
+    with open(path, "wb") as f:
+        if header is not None:
+            f.write(_header_text(header))
+        f.write(_interleaved(v))
+
+
+def read_test_vectors(path: str, lattice, n: int, dof: int = 12,
+                      single_file: bool = True) -> np.ndarray:
+    """n test vectors [n, T, Z, Y, X, dof] (complex128) from one file or
+    from the per-vector files path.00 ... (interpolation 4)."""
+    _refuse_hdf5(path)
+    if not single_file:
+        return np.stack([read_vector(f"{path}.{i:02d}", lattice, dof) for i in range(n)])
+    lt, lz, ly, lx = lattice
+    per = lt * lz * ly * lx * dof
+    with open(path, "rb") as f:
+        _skip_header(f)
+        data = np.fromfile(f, dtype="<f8", count=2 * per * n)
+    if data.size != 2 * per * n:
+        raise ValueError(f"{path}: expected {n} vectors")
+    return (data[0::2] + 1j * data[1::2]).reshape(n, lt, lz, ly, lx, dof)
+
+
+def write_test_vectors(path: str, tvs, single_file: bool = True,
+                       header: dict | None = None) -> None:
+    """Write test vectors [n, T, Z, Y, X, dof] (the inverse of
+    read_test_vectors; one file with a header holding the count and
+    `header`, or one headerless file a vector)."""
+    _refuse_hdf5(path)
+    tvs = np.asarray(tvs)
+    if not single_file:
+        for i in range(tvs.shape[0]):
+            write_vector(f"{path}.{i:02d}", tvs[i])
+        return
+    with open(path, "wb") as f:
+        f.write(_header_text({"vectors": tvs.shape[0], **(header or {})}))
+        f.write(_interleaved(tvs))

@@ -64,9 +64,10 @@ import numpy as np
 import torch
 
 from ..geometry import Geometry
+from ..operators import fast
 from ..operators.stencil import (ODD, CoarseStencilSoA, WilsonStencilSoA, dense_inverse,
                                  dense_schur_inverse, dense_schur_solve, dense_solve, schur,
-                                 schur_even_indices)
+                                 schur_even_indices, shift_stencil)
 from ..operators.wilson import WilsonOperator
 from ..parallel import comm
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
@@ -287,9 +288,10 @@ class Multigrid:
         return P, CoarseStencilSoA.build(cop, _slab_geom(next_geom, next_mesh),
                                          dtype=self.cfg.dtype, mesh=next_mesh)
 
-    def re_setup(self, level: MGLevel):
+    def re_setup(self, level: MGLevel, depth_only: bool = False):
         """Rebuild P and the Galerkin operators from `level` downward
-        (re_setup_PRECISION)."""
+        (re_setup_PRECISION); depth_only rebuilds this one coarsening only
+        (the interpolation-1 setup's rebuild, src/setup_generic.c:373-390)."""
         lvl = level
         while lvl is not None and not lvl.is_coarsest:
             nxt = lvl.next
@@ -298,7 +300,32 @@ class Multigrid:
                 nxt.smoother.replace_stencil(nxt.stencil)
             # stale against the rebuilt stencil; rebuilt at first use
             nxt.cycle_stencil = nxt.dense_inv = nxt.block_inv = None
+            if depth_only:
+                break
             lvl = nxt
+
+    def shift_update(self, delta: float, op: WilsonOperator):
+        """Shift the mass of every level by delta without a new setup (the
+        JAX package's hierarchy.py:1052-1072, the reference's shift_update):
+        the fine stencil is rebuilt from op, the caller's complex128
+        operator (slab) already shifted by delta, every coarse stencil gets
+        +delta I on its self blocks, and the bf16 views and stored inverses
+        are dropped, to be rebuilt at first use.  No bootstrap and no
+        Galerkin build runs."""
+        for lvl in self._levels():
+            lvl.stencil = shift_stencil(lvl.stencil, delta, op)
+            if lvl.smoother is not None:
+                lvl.smoother.replace_stencil(lvl.stencil)
+            lvl.cycle_stencil = lvl.dense_inv = lvl.block_inv = None
+
+    def get_test_vectors(self) -> np.ndarray:
+        """The fine level's test vectors as numpy [N, T, Z, Y, X, 4, 3]
+        (gathered whole onto every rank under a mesh; checkpointing)."""
+        lvl = self.fine
+        tv = lvl.test_vectors
+        if lvl.stencil.mesh is not None:
+            tv = gather_field(lvl.stencil.mesh, tv, lvl.stencil.lattice)
+        return fast.spinor_from_soa(tv, lvl.geom.lattice).cpu().numpy()
 
     def set_test_vectors(self, tvs, depth: int = 0):
         """Install test vectors [N, T, Z, Y, X, *dof] at `depth` and rebuild
@@ -514,6 +541,58 @@ class Multigrid:
             self._inv_iter_fcycle(self.fine, it)
         finally:
             self._defer_dense = False
+
+    def twolevel_extension_setup(self, setup_iter: Optional[int] = None):
+        """Interpolation 1 (inv_iter_2lvl_extension_setup_PRECISION,
+        src/setup_generic.c:324-416; the JAX package's hierarchy.py:878-941):
+        every setup iteration gives each test vector one plain two-level
+        update (an unpreconditioned coarse GCR of P^H tv on the next level,
+        the odd-even Schur GCR where that level is the coarsest, then
+        interpolation and post-smoothing towards tv) and rebuilds that one
+        coarsening; then the next level does the same."""
+        it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
+        if self.cfg.num_levels < 2 or it <= 0:
+            return
+        self._defer_dense = True
+        try:
+            self._inv_iter_2lvl(self.fine, it)
+        finally:
+            self._defer_dense = False
+
+    def _inv_iter_2lvl(self, level: MGLevel, setup_iter: int):
+        for _ in range(setup_iter):
+            level.test_vectors = self._twolevel_update(level, level.test_vectors)
+            self.re_setup(level, depth_only=True)
+        if not level.next.is_coarsest:
+            self._inv_iter_2lvl(level.next, setup_iter)
+
+    def _twolevel_update(self, level: MGLevel, tvs):
+        """The interpolation-1 update of all test vectors of a level as one
+        batch (the JAX package vmaps _twolevel_update_one; the updates of
+        one iteration are independent), in chunks as _setup_cycles_batch."""
+        cfg = self.cfg
+        nxt = level.next
+        s = self._cycle_view(level)
+        out = []
+        chunk = self._setup_chunk(level, tvs.shape[0])
+        for c0 in range(0, tvs.shape[0], chunk):
+            tv = tvs[c0:c0 + chunk]
+            b_c = self._restrict(level, tv)
+            if nxt.is_coarsest:
+                x_c, _ = self._coarsest_solve(nxt, b_c)
+            else:           # the reference's gmres with prec = _NOTHING
+                ns = self._cycle_view(nxt)
+                x_c, _, _, _ = device_gcr(ns.full_op, b_c, m=cfg.coarse_iter,
+                                          tol=cfg.coarse_tol,
+                                          n_restarts=cfg.coarse_restart,
+                                          allsum=ns.allsum)
+            buf = sap_smooth_from(s, level.smoother.colors, tv, self._interpolate(level, x_c),
+                                  cycles=level.cfg.post_smooth_iter,
+                                  block_iter=level.cfg.block_iter,
+                                  odd_even=(level.depth == 0 and cfg.odd_even),
+                                  block_inv=level.block_inv)
+            out.append(_normalize(buf, level.stencil))
+        return torch.cat(out)
 
     def _setup_cycles_batch(self, level: MGLevel, tvs):
         """The bootstrap cycles of all test vectors of a level as one batch

@@ -45,6 +45,12 @@ def spinor_from_soa(v: torch.Tensor, lattice) -> torch.Tensor:
     return a.movedim(nb, -1).movedim(nb, -1).contiguous()
 
 
+def gamma5_soa(v: torch.Tensor) -> torch.Tensor:
+    """gamma5 v = diag(-1, -1, +1, +1)_spin v for dof-major fields [*, 12, V]
+    (dofs 0-5 hold spins 0 and 1)."""
+    return torch.cat([-v[..., :6, :], v[..., 6:, :]], dim=-2)
+
+
 def links_to_soa(links: torch.Tensor) -> torch.Tensor:
     """[4, T,Z,Y,X, 3,3] -> [4, 3, 3, V]."""
     return links.permute(0, 5, 6, 1, 2, 3, 4).reshape(4, 3, 3, -1).contiguous()

@@ -4,6 +4,8 @@ cycles on every level.
 A stencil exposes (whole-lattice, mask-based; blocks never materialize):
 
     full_op(v)          the full operator D v
+    dagger_op(v)        D^dagger v = gamma5 D gamma5 v (the fine stencil only:
+                        K1 between two gamma5 multiplications)
     block_op(v)         D restricted to intra-Schwarz-block couplings
     self_op(v)          the per-site self-coupling (clover / A)
     self_inv(v, parity) the inverse self-coupling on the sites of one parity
@@ -203,6 +205,9 @@ class WilsonStencilSoA(_SoALayout):
         return cuda_dslash.d_plus_clover(self.links, self.cdiag, self.coff, v,
                                          self.lattice)
 
+    def dagger_op(self, v):
+        return fast.gamma5_soa(self.full_op(fast.gamma5_soa(v)))
+
     def block_op(self, v):
         return cuda_dslash.d_plus_clover(self.links_intra, self.cdiag,
                                          self.coff, v, self.lattice)
@@ -302,6 +307,27 @@ class CoarseStencilSoA(_SoALayout):
     def hop_intra(self, v, parity=None):
         # K4 selects a parity for the self term only: every site is computed
         return self._apply(self.Pk, v, (1, 9), masked=True)
+
+
+def shift_stencil(s, delta: float, op: WilsonOperator = None):
+    """The stencil with its self-coupling shifted by +delta I (the per-level
+    body of the mass update, the JAX package's stencil.py:549-598; the
+    reference's shift_update, src/dirac_generic.c:504-551).  A fine stencil
+    is rebuilt from op, the complex128 operator already shifted to the new
+    mass: its clover inverse is then formed in complex128 as in a fresh
+    build.  A coarse stencil gets delta on the diagonal of its self blocks
+    and their inverses recomputed: since P^H P = I on every aggregate, a
+    shift of the fine operator projects to exactly this."""
+    if isinstance(s, WilsonStencilSoA):
+        if op is None:
+            raise ValueError("a fine stencil is shifted by a rebuild from the shifted operator")
+        return WilsonStencilSoA.build(op, s.geom, dtype=s.dtype, mesh=s.mesh)
+    Pk = s.Pk.clone()
+    eye = torch.eye(s.dof, dtype=Pk.dtype, device=Pk.device)
+    Pk[0] += delta * eye[:, :, None]
+    A = Pk[0].permute(2, 1, 0)                       # [V, i, j]
+    Pk_inv = torch.linalg.inv(A)[None].permute(0, 3, 2, 1).contiguous()
+    return dataclasses.replace(s, Pk=Pk, Pk_inv=Pk_inv)
 
 
 def schur(s, v):

@@ -71,3 +71,20 @@ def d_plus_clover(op: WilsonOperator, phi):
 def gamma5(phi):
     """gamma5 phi = diag(-1, -1, +1, +1)_spin phi (src/dirac_generic.c:288-297)."""
     return torch.cat([-phi[..., 0:2, :], phi[..., 2:4, :]], dim=-2)
+
+
+def g5_d_plus_clover(op: WilsonOperator, phi):
+    """gamma5 D phi, the Hermitian-indefinite form (g5D_plus_clover)."""
+    return gamma5(d_plus_clover(op, phi))
+
+
+def d_dagger(op: WilsonOperator, phi):
+    """D^dagger phi = gamma5 D gamma5 phi (src/dirac_generic.c:281-285)."""
+    return gamma5(d_plus_clover(op, gamma5(phi)))
+
+
+def shift_diagonal(op: WilsonOperator, delta: float) -> WilsonOperator:
+    """The operator with delta added to its mass diagonal, C + delta I_12
+    (the reference's shift_update, src/dirac_generic.c:504-551)."""
+    eye = torch.eye(6, dtype=op.clover.dtype, device=op.clover.device)
+    return WilsonOperator(op.links, op.clover + delta * eye)

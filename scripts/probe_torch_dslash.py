@@ -10,8 +10,10 @@ Every shape the rough16 path runs, on the rough16 gauge field (16^4):
        build); f64 batch 1 (the outer residual)
   K2   block links, parity-restricted (the SAP's block odd-even solve) at
        batch 1 and 28 and all sites at batch 1; face links of one direction
-       at batch 56 (the Galerkin build)
-  K3   the clover at batch 1 and 28; the clover inverse on the odd sites
+       at batch 56 (the Galerkin build); the full links on the even and on
+       the odd sites at batch 1 (method 4's D_eo / D_oe)
+  K3   the clover at batch 1 and 28, and on the even sites at batch 1
+       (method 4's A_ee); the clover inverse on the odd sites
        from its compact odd-site storage at batch 1 and 28, and on a
        (16, 8, 16, 16) slab whose global offset is odd (parity_offset 1)
 
@@ -149,8 +151,13 @@ def cases(lat, st, inv, gen):
            dict(s=f32, links=f32.links_intra))
     yield ("K2 face links (t), all sites, batch 56", "K2", phi(56), lat,
            dict(s=f32, links=chip_smoke.galerkin_face_links(f32, 0)))
+    for parity, sites in ((EVEN, "even"), (ODD, "odd")):
+        yield (f"K2 full links, {sites} sites, batch 1", "K2", phi(1), lat,
+               dict(s=f32, links=f32.links, parity=parity))
     for B in (1, 28):
         yield f"K3 clover batch {B}", "K3", phi(B), lat, dict(s=f32, clover=True)
+    yield ("K3 clover, even sites, batch 1", "K3", phi(1), lat,
+           dict(full=(f32.cdiag, f32.coff), parity=EVEN, compact=False))
     for B in (1, 28):
         yield (f"K3 inverse, odd sites (compact), batch {B}", "K3", phi(B), lat,
                dict(full=inv, parity=ODD))
@@ -191,7 +198,7 @@ def main():
         if key == "K3":
             full = c["full"] if "full" in c else (c["s"].cdiag, c["s"].coff)
             compact = None
-            if parity is not None:
+            if parity is not None and c.get("compact", True):
                 compact = tuple(fast.compact_parity(t, clat, parity, offset) for t in full)
 
             def run(library, out, phi=phi, compact=compact, full=full, clat=clat):

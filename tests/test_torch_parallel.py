@@ -14,7 +14,10 @@ each running tests/torch_parallel_ranks.py, which imports no JAX.
       equals the single-rank cycle (complex128, 1e-5 relative);
   (e) Solver on 2 and 4 ranks against one rank: iterations within 1, x
       within 1e-6, exact relres below the tolerance;
-  (f) slabs at an odd global offset give the single-rank odd-even results.
+  (f) slabs at an odd global offset give the single-rank odd-even results;
+  (g) method 3 (sixteen-colour SAP) with multigrid on a (1, 2, 1, 1) grid
+      against one rank: iterations within 1, exact relres below the
+      tolerance.
 """
 
 import jax
@@ -69,6 +72,8 @@ iterations between restarts: 50
 maximum of restarts: 20
 """
 
+INI_METHOD3 = INI.replace("method: 2", "method: 3")
+
 
 def _jmesh(dims):
     n = int(np.prod(dims))
@@ -118,6 +123,7 @@ def _cases(dims, x):
     cases["coarse"] = ("coarse_hops", dict(lattice=COARSE, A=A, Df=Df, Db=Db, v=x["cv"]))
     cases["solve"] = ("solve", dict(ini=INI, U=x["U"]))
     if dims == (1, 2, 1, 1):
+        cases["solve3"] = ("solve", dict(ini=INI_METHOD3, U=x["U"]))
         cases["cycle"] = ("mg_cycle", dict(
             levels=ranks.level_configs(MG_LEVELS, ((2, 2, 2, 2), (1, 1, 1, 1), (1, 1, 1, 1)), 4),
             U=x["Umg"], tv0=x["tv0"], tv1=x["tv1"], eta=x["eta"], seed=1))
@@ -330,3 +336,26 @@ def test_odd_offset_slabs_match_single_rank(runs, inputs):
     for r in res:
         for name, w in want.items():
             assert rel_err(r["odd"][name], w.numpy()) < 1e-12, name
+
+
+# ---------------------------------------------------------------------------
+# (g) method 3 with multigrid on the grid
+# ---------------------------------------------------------------------------
+
+def test_sharded_method3_matches_single_rank(runs, inputs):
+    res = runs((1, 2, 1, 1))
+    s = api.Solver(config.parse_ini(INI_METHOD3), device="cpu")
+    s.set_conf(inputs["U"], links_have_bc=True)
+    s.setup()
+    assert len(s.mg.fine.smoother.colors) == 16
+    rhs = config.make_rhs("ones", s.lattice)
+    x1, info = s.solve(rhs)
+    assert info.converged and s.true_residual(x1, rhs) < 1e-10
+    x0, it0, _, _ = res[0]["solve3"]
+    for r in res:
+        x, it, relres, exact = r["solve3"]
+        assert it == it0
+        np.testing.assert_array_equal(x, x0)
+        assert exact < 1e-10 and relres < 1e-10
+        assert abs(it - info.iterations) <= 1, (it, info.iterations)
+        np.testing.assert_allclose(x, x1, atol=1e-6)
