@@ -31,7 +31,9 @@ Phases, one result line each (or a few), in order:
               K5-bf16 run the same cases on the same blocks rounded to
               bf16 (tolerance 1e-5: f32 sums in another order), K6 the
               products with the two stored inverses of
-              rough16, [1, 7168, 7168] and [256, 896, 896].  Each line also
+              rough16, [1, 7168, 7168] and [256, 896, 896], the latter also
+              on the block lists of one red-black colour (128 blocks) and
+              one of sixteen colours (16).  Each line also
               gives the least time the card could take (bytes once over
               3.35 TB/s or operations over the peak rate, whichever is
               larger) and the time of one PyTorch call that computes the
@@ -43,11 +45,13 @@ Phases, one result line each (or a few), in order:
               stacked neighbour fields for K4 / K5 (the TPU kernel's own
               input; widened complex64 blocks for the bf16 rows, zeroed at
               the other parity's sites for self_inv odd), and torch.matmul
-              on the widened complex64 matrix for K6, all in full f32
-              (utils.pin_full_precision); K6 also over 12 right-hand sides
-              at both shapes (the batched cycles of phase "multi": the
-              multi-right-hand-side kernel, one read of the matrix), its
-              library call [nb, m, m] @ [nb, m, 12]
+              on the widened complex64 listed blocks for K6, all in full
+              f32 (utils.pin_full_precision); K6 also over 12 right-hand
+              sides at every shape (the batched cycles of phase "multi":
+              the tensor-core kernel, one read of the matrix, whose bound
+              counts the exact split's 3 x 8 nc m^2 R operations at the
+              bf16 tensor-core rate, 989 TFLOP/s), its library call
+              [nc, m, m] @ [nc, m, 12]
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
               solve of a right-hand side of ones, exact relative residual
@@ -69,7 +73,8 @@ Phases, one result line each (or a few), in order:
               relres (complex128), wall time, host us an iteration and
               launch counts: methods 1 and 3 with the 3-level hierarchy
               (method 3 also with the options on, a warm solve's K6
-              launches set beside phase 7's red-black ones), SAP alone
+              launches set beside phase 7's red-black ones, and K6's device
+              time in one more warm solve, profiled), SAP alone
               (method 2, interpolation 0) and method 4 reach < 1e-10
               within the ini's restarts; methods -1, 0 and 5 reach it or
               stop at iterations between restarts x maximum of restarts,
@@ -98,16 +103,20 @@ Phases, one result line each (or a few), in order:
               side beside phase 4's warm solve, peak device memory;
               relres < 1e-10 in <= 12 and <= phase 4 + 2 outer iterations,
               K4-bf16 and K6 launched, and no coarsest GCR iteration in the
-              solve
+              solve; then K6's device time in a third, profiled warm solve
+              (torch.profiler's kernel events, their count held to the
+              wrapper's launches)
   7b. multi-direct  phase 4b with phase 7's setup (the options on: K6 over
-              12 right-hand sides, K4-bf16 at batch 12)
+              12 right-hand sides, K4-bf16 at batch 12), and K6's device
+              time in one more, profiled solve_multi
   8. sharded-direct  phase 5 with the three options: K5-bf16 must run, and
               the iterations are within 1 of phase 7
 
 The second-to-last lines are a JSON summary of the kernels (launches of
 K1-K4 from phase 4, K5 from phase 5, K4-bf16 and K6 from phase 7, K5-bf16
 from phase 8, and under "launches_by_path" those of every path run; the
-times of the first case and, under "cases", of every case of phase 3) and
+times of the first case and, under "cases", of every case of phase 3; K6's
+device time in the three profiled runs under "device_ms_by_path") and
 the card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before that
 line; so does a machine without CUDA.
@@ -135,6 +144,8 @@ MULTI_RHS = 12            # phase "multi": the 12 spin-colour sources of a propa
 # non-tensor-core arithmetic in f32 and f64
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.complex64: 67e12, torch.complex128: 34e12}
+# dense bf16 tensor-core rate: K6's split work over several right-hand sides
+PEAK_BF16_TC = 989e12
 # flops per site and right-hand side: Wilson hop 1320, packed clover (two
 # 6 x 6 complex blocks) 576
 DSLASH_FLOPS = {"K1": 1320 + 576, "K2": 1320, "K3": 576}
@@ -188,23 +199,28 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=None):
+def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=None,
+            library_ref=None):
     """One kernel-vs-plain check; keeps the worst error per kernel, the
     numbers of the first (batch 1, main-path dtype) case, and every case's
     numbers under "cases".  work = (bytes, operations) the function needs on
-    these inputs."""
+    these inputs, or (bytes, operations, peak rate) where the operations run
+    at another rate than dtype's; library_ref(want) is the part of the plain
+    result the library call computes (default: all of it)."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     abs_err = float((got - want).abs().max())
     rel = abs_err / float(want.abs().max())
     tol = TOL[dtype]
     if library_fn is not None:    # the library time is only worth its name if it agrees
-        lib_rel = float((library_fn().reshape(want.shape) - want).abs().max() / want.abs().max())
+        ref = want if library_ref is None else library_ref(want)
+        lib_rel = float((library_fn().reshape(ref.shape) - ref).abs().max() / ref.abs().max())
         if lib_rel > tol:
             fail(f"{label}: the library call differs from the plain version by {lib_rel:.3e}")
     ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, reps=3)
     lib_ms = cuda_ms(library_fn, reps=3) if library_fn is not None else None
-    by_bytes, by_ops = work[0] / MEM_BYTES_PER_S, work[1] / PEAK_FLOPS[dtype]
+    peak = work[2] if len(work) > 2 else PEAK_FLOPS[dtype]
+    by_bytes, by_ops = work[0] / MEM_BYTES_PER_S, work[1] / peak
     bound_ms = 1e3 * max(by_bytes, by_ops)
     bound_by = "bytes" if by_bytes >= by_ops else "operations"
     ok = rel <= tol
@@ -532,29 +548,85 @@ def check_halo_kernels(results, gen, glat, d):
         del Pk, Pk16
 
 
+def dense_cases(d, lat):
+    """K6's shapes on rough16 with their block lists: the coarsest level's
+    Schur inverse (n / 2 = d * 4^4 / 2 = 7168, one block) and the depth-1
+    block inverses (8^4 / 2^4 = 256 blocks of 2^4 * d = 896) on all blocks,
+    one red-black colour's and one of sixteen colours' (the SAP's colour
+    steps, smoothers/sap.color_blocks); [(nb, m, {label: list or None})]."""
+    from ddalphaamg_tpu_torch.geometry import Geometry
+    from ddalphaamg_tpu_torch.smoothers import sap
+
+    level1 = Geometry(lattice=tuple(e // 2 for e in lat), block=(2, 2, 2, 2))
+    colour = {}
+    for label, scheme in (("one red-black colour", "red_black"),
+                          ("one of sixteen colours", "sixteen_color")):
+        mask = torch.as_tensor(sap.color_masks(level1, scheme)[0].reshape(-1), device="cuda")
+        colour[label] = sap.color_blocks(mask, level1)
+    return [(1, d * math.prod(e // 4 for e in lat) // 2, {"all blocks": None}),
+            (math.prod(level1.block_grid), 16 * d, {"all blocks": None, **colour})]
+
+
+def dense_work(A, x, blocks, R):
+    """(bytes, operations, peak) of K6 on the listed blocks: their blocks of
+    A and of x once and the whole of y once; 8 nc m^2 f32 operations at
+    batch 1 (CUDA cores), the split's 3 x 8 nc m^2 R bf16 ones on the tensor
+    cores from two right-hand sides on."""
+    nb, m = A.shape[0], A.shape[1]
+    nc = nb if blocks is None else blocks.numel()
+    moved = nbytes(A) * nc // nb + nbytes(x) * nc // nb + nbytes(x)
+    if R == 1:
+        return moved, 8 * nc * m * m, PEAK_FLOPS[torch.complex64]
+    return moved, 3 * 8 * nc * m * m * R, PEAK_BF16_TC
+
+
 def check_dense_kernel(results, gen, d, lat):
-    """K6 at the two products of rough16 with stored inverses: the coarsest
-    level's Schur inverse (n / 2 = d * 4^4 / 2 = 7168) and the depth-1
-    block inverses (8^4 / 2^4 = 256 blocks of 2^4 * d = 896), on random
-    matrices rounded to bf16."""
+    """K6 at dense_cases on random matrices rounded to bf16, at batch 1 and
+    12 (the batched cycles of phase "multi": the tensor-core kernel, one
+    read of the matrix); library: torch.matmul on the widened listed blocks,
+    gathered beforehand, [nc, m, m] @ [nc, m, R]."""
     from ddalphaamg_tpu_torch.operators import coarse, cuda_dense
 
     dev = torch.device("cuda")
-    coarsest = math.prod(e // 4 for e in lat)         # 4^4 sites
-    blocks = math.prod(e // 4 for e in lat)           # 2^4 blocks of the 8^4 level
-    for nb, m in ((1, d * coarsest // 2), (blocks, 16 * d)):
+    for nb, m, lists in dense_cases(d, lat):
         A = coarse.compress(torch.randn((nb, m, m), generator=gen, dtype=torch.complex64,
                                         device=dev))
-        wide = coarse.widen(A)
         for R in (1, MULTI_RHS):
             x = torch.randn((R, nb, m), generator=gen, dtype=torch.complex64, device=dev)
             x = x[0] if R == 1 else x
-            xt = x.reshape(R, nb, m).permute(1, 2, 0).contiguous()    # [nb, m, R]
-            compare(results, "K6", f"K6 bf16 matvec [{nb}, {m}, {m}] batch {R}",
-                    lambda: cuda_dense.matvec(A, x), lambda: cuda_dense.matvec_plain(A, x),
-                    torch.complex64, (nbytes(A) + 2 * nbytes(x), 8 * nb * m * m * R),
-                    lambda: torch.matmul(wide, xt).permute(2, 0, 1))
-        del A, wide
+            for label, blocks in lists.items():
+                idx = torch.arange(nb, device=dev) if blocks is None else blocks.long()
+                wide = coarse.widen(A[idx])
+                xt = x.reshape(R, nb, m)[:, idx].permute(1, 2, 0).contiguous()   # [nc, m, R]
+                compare(results, "K6", f"K6 bf16 matvec [{nb}, {m}, {m}] batch {R}, {label}",
+                        lambda: cuda_dense.matvec(A, x, blocks),
+                        lambda: cuda_dense.matvec_plain(A, x, blocks),
+                        torch.complex64, dense_work(A, x, blocks, R),
+                        lambda: torch.matmul(wide, xt).permute(2, 0, 1),
+                        lambda want: want.reshape(R, nb, m)[:, idx])
+                del wide, xt
+        del A
+
+
+def k6_device_ms(run):
+    """K6's device time (ms) and kernel count while run() executes, from
+    the profiler's CUDA kernel events; the count must equal the wrapper's
+    launches in that run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddalphaamg_tpu_torch import kernels
+
+    before = kernels.counts()["K6"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "dense_bf16" in e.name]
+    launches = kernels.counts()["K6"] - before
+    if len(spans) != launches:
+        fail(f"the profiler saw {len(spans)} K6 kernels, the wrapper launched {launches}")
+    return sum(t.end - t.start for t in spans) / 1e3, launches
 
 
 def exact_relres(solver, x, rhs):
@@ -638,9 +710,10 @@ def point_sources(lattice):
     return rhs
 
 
-def multi_path(name, solver):
+def multi_path(name, solver, k6_ms=None):
     """Solver.solve_multi of the 12 point sources with the solver's setup,
-    held against solve of lanes 0 and 11 alone."""
+    held against solve of lanes 0 and 11 alone; with a dict k6_ms, K6's
+    device time in one more, profiled solve_multi goes to k6_ms[name]."""
     import numpy as np
 
     from ddalphaamg_tpu_torch import kernels
@@ -676,11 +749,22 @@ def multi_path(name, solver):
                  f"{one.iterations} alone")
     phase(name, t0, f"batch of {len(infos)} {batch:.3f} s against {sum(singles) / 2:.3f} s "
           f"a single solve ({len(infos)} singles ~ {len(infos) * sum(singles) / 2:.3f} s)")
+    if k6_ms is not None:
+        k6_ms[name] = k6_profiled(name, t0, "solve_multi", lambda: solver.solve_multi(rhs))
     return counts
 
 
-def direct_path(single_iterations, single_warm):
-    """The single-rank solve with the three accelerator options on."""
+def k6_profiled(name, t0, what, run):
+    """K6's device time in run(), printed and returned as a dict."""
+    ms, launches = k6_device_ms(run)
+    phase(name, t0, f"K6 device time in a profiled {what}: {ms:.4f} ms over {launches} "
+          f"launches")
+    return dict(ms=ms, launches=launches)
+
+
+def direct_path(single_iterations, single_warm, k6_ms):
+    """The single-rank solve with the three accelerator options on; K6's
+    device time in a profiled warm solve goes to k6_ms."""
     import numpy as np
 
     from ddalphaamg_tpu_torch import api, config, kernels
@@ -726,6 +810,8 @@ def direct_path(single_iterations, single_warm):
         if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
             fail(f"{name}: {lab} solve ran the coarsest GCR")
     check_counts(name, counts)
+    k6_ms["direct, warm solve"] = k6_profiled(name, t0, "warm solve",
+                                              lambda: solver.solve(rhs))
     return counts, warm, info.iterations, solver
 
 
@@ -778,9 +864,11 @@ def method_run(paths, label, solver, rhs, kind, needed, setup=True, x0=None):
     return x, info
 
 
-def methods_path(paths, solver):
+def methods_path(paths, solver, k6_ms):
     """Phase "methods": the other methods and the library API on rough16 at
-    full size (the ini otherwise); `solver` is phase 4's, set up."""
+    full size (the ini otherwise); `solver` is phase 4's, set up.  K6's
+    device time in a profiled warm solve of method 3 with the options on
+    goes to k6_ms."""
     import tempfile
 
     import numpy as np
@@ -806,6 +894,9 @@ def methods_path(paths, solver):
                 fine + ("K4-bf16", "K6"))
     method_run(paths, "method 3 + multigrid, options on, warm solve", s3, rhs, "converge",
                fine + ("K4-bf16", "K6"), setup=False)
+    k6_ms["method 3, options on, warm solve"] = k6_profiled(
+        "methods", time.perf_counter(), "warm solve of method 3 with the options on",
+        lambda: s3.solve(rhs))
     del s3
     # the methods without multigrid
     run("method 2, SAP alone", method_params(2, 0), "converge", fine)
@@ -971,10 +1062,11 @@ def main():
     phase("kernels", t0, "all kernels agree with their plain versions")
 
     paths = {}        # the launch counts of every path run, by name
+    k6_ms = {}        # K6's device time in the profiled runs, by path
     counts, iterations, warm, solver = main_path()
     paths["solve"] = dict(counts)
     paths["multi"] = multi_path("multi", solver)
-    methods_path(paths, solver)
+    methods_path(paths, solver, k6_ms)
     del solver
     torch.cuda.empty_cache()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)
@@ -988,12 +1080,12 @@ def main():
     else:
         print(f"[nccl] not run: {n} card (the nccl transport needs a card per rank)",
               flush=True)
-    direct, direct_warm, direct_iterations, solver = direct_path(iterations, warm)
+    direct, direct_warm, direct_iterations, solver = direct_path(iterations, warm, k6_ms)
     paths["direct"], paths["direct, warm solve"] = direct, direct_warm
     print(f"[methods] K6 launches in a warm solve with the options on: 16 colours "
           f"{paths['method 3 + multigrid, options on, warm solve']['K6']}, red-black "
           f"{direct_warm['K6']}", flush=True)
-    paths["multi-direct"] = multi_path("multi-direct", solver)
+    paths["multi-direct"] = multi_path("multi-direct", solver, k6_ms)
     del solver
     torch.cuda.empty_cache()
     counts["K4-bf16"], counts["K6"] = direct["K4-bf16"], direct["K6"]
@@ -1001,6 +1093,10 @@ def main():
                                   direct_iterations, options=True)
     paths["sharded-direct (rank 0)"] = sharded_direct
     counts["K5-bf16"] = sharded_direct["K5-bf16"]
+    results["K6"]["device_ms_by_path"] = k6_ms
+    print("[K6] device time by path: " + ", ".join(
+        f"{p} {v['ms']:.4f} ms ({v['launches']} launches)" for p, v in k6_ms.items()),
+        flush=True)
     summary = [dict(name=k.name, route=k.route, source=k.source,
                     replaces=k.replaces, launches=counts[key],
                     launches_by_path={p: c[key] for p, c in paths.items() if c[key]},

@@ -513,16 +513,6 @@ __global__ void __launch_bounds__(32 * Mrhs<R>::WR * Mrhs<R>::WB, 1)
 
 namespace {
 
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 // tile: 16 sites, 32 from B1_WIDE sites on; warps: 8, fewer where a term
 // slot would get fewer than B1_SLOT_TERMS terms; row-chunk groups gy: as
 // many as keep the grid near B1_THREADS threads (each block loops over

@@ -56,6 +56,17 @@ __device__ __forceinline__ cplx<R> cphase(int vr, int vi, cplx<R> x) {
   return cx<R>(R(vr) * x.re - R(vi) * x.im, R(vr) * x.im + R(vi) * x.re);
 }
 
+// streaming multiprocessors of the current device (read once)
+inline int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 // lattice coordinates of a lexicographic site index (X fastest), T Z Y X
 struct Lattice {
   int n[4];  // extents T, Z, Y, X

@@ -478,7 +478,7 @@ class Multigrid:
                                 cycles=level.cfg.post_smooth_iter,
                                 block_iter=level.cfg.block_iter,
                                 odd_even=(depth == 0 and cfg.odd_even),
-                                block_inv=level.block_inv)
+                                block_inv=level.block_inv, blocks=level.smoother.blocks)
         return x, counters
 
     def _kcycle_tol(self, depth: int, tol: float) -> float:
@@ -590,7 +590,7 @@ class Multigrid:
                                   cycles=level.cfg.post_smooth_iter,
                                   block_iter=level.cfg.block_iter,
                                   odd_even=(level.depth == 0 and cfg.odd_even),
-                                  block_inv=level.block_inv)
+                                  block_inv=level.block_inv, blocks=level.smoother.blocks)
             out.append(_normalize(buf, level.stencil))
         return torch.cat(out)
 

@@ -149,20 +149,28 @@ def build_block_inverse(s, bf16: bool = False):
     return compress(inv) if bf16 else inv
 
 
-def apply_block_inverse(s, binv, r):
+def color_blocks(mask, geom: Geometry):
+    """The blocks of a color, int32 [nc] in to_blocks order, from its
+    site-level mask [V] (on a slab: the slab's mask and geometry)."""
+    first = to_blocks(mask.reshape(1, -1), geom)[:, 0]     # a site of each block
+    return torch.nonzero(first != 0).reshape(-1).to(torch.int32)
+
+
+def apply_block_inverse(s, binv, r, blocks=None):
     """delta = blockD^-1 r (r [*B, d, V] masked to one color) by one
-    product with the block inverses for all right-hand sides; blocks of the
-    other color hold zeros and stay zero."""
+    product with the block inverses for all right-hand sides, on the
+    color's blocks (int32 list, color_blocks; None: all blocks); the other
+    blocks stay zero."""
     rb = to_blocks(r, s.geom)
-    return from_blocks(cuda_dense.matvec(binv, rb), s.geom, s.dof)
+    return from_blocks(cuda_dense.matvec(binv, rb, blocks), s.geom, s.dof)
 
 
-def _block_solve(s, r, block_iter: int, odd_even: bool, block_inv=None):
-    """Block solve of blockD delta = r (r masked to one color): exact with
-    the precomputed block inverses, else the reference's approximate local
-    MinRes or block odd-even Schur MinRes."""
+def _block_solve(s, r, block_iter: int, odd_even: bool, block_inv=None, blocks=None):
+    """Block solve of blockD delta = r (r masked to one color, whose blocks
+    `blocks` lists): exact with the precomputed block inverses, else the
+    reference's approximate local MinRes or block odd-even Schur MinRes."""
     if block_inv is not None:
-        return apply_block_inverse(s, block_inv, r)
+        return apply_block_inverse(s, block_inv, r, blocks)
     if not odd_even:
         return _minres(s, r, s.block_op, block_iter)
     d_o1 = s.self_inv(r, ODD)
@@ -173,33 +181,38 @@ def _block_solve(s, r, block_iter: int, odd_even: bool, block_inv=None):
 
 
 def _sweep(s, x, r, colors, cycles: int, block_iter: int, odd_even: bool,
-           block_inv=None):
-    """cycles sweeps over the colors; the last step skips the residual update."""
-    seq = list(colors) * cycles
-    for mask in seq[:-1]:
-        delta = _block_solve(s, mask * r, block_iter, odd_even, block_inv)
+           block_inv=None, blocks=None):
+    """cycles sweeps over the colors (blocks: each color's block list, or
+    None); the last step skips the residual update."""
+    seq = list(zip(colors, blocks or (None,) * len(colors))) * cycles
+    for mask, listed in seq[:-1]:
+        delta = _block_solve(s, mask * r, block_iter, odd_even, block_inv, listed)
         x = x + delta
         r = r - s.full_op(delta)
-    return x + _block_solve(s, seq[-1] * r, block_iter, odd_even, block_inv)
+    mask, listed = seq[-1]
+    return x + _block_solve(s, mask * r, block_iter, odd_even, block_inv, listed)
 
 
 def sap_smooth(s, colors, eta, cycles: int, block_iter: int, odd_even: bool,
-               block_inv=None):
+               block_inv=None, blocks=None):
     """M(eta) from a zero initial guess (preconditioner application)."""
     return _sweep(s, torch.zeros_like(eta), eta, colors, cycles, block_iter,
-                  odd_even, block_inv)
+                  odd_even, block_inv, blocks)
 
 
 def sap_smooth_from(s, colors, eta, x, cycles: int, block_iter: int,
-                    odd_even: bool, block_inv=None):
+                    odd_even: bool, block_inv=None, blocks=None):
     """Post-smoothing with initial guess x (reference smoother _RES path)."""
     r = eta - s.full_op(x)
-    return _sweep(s, x, r, colors, cycles, block_iter, odd_even, block_inv)
+    return _sweep(s, x, r, colors, cycles, block_iter, odd_even, block_inv, blocks)
 
 
 class SchwarzPreconditioner:
     """SAP smoother of one multigrid level: block_iter MinRes steps per block
-    solve, `cycles` sweeps, block odd-even Schur solves when odd_even."""
+    solve, `cycles` sweeps, block odd-even Schur solves when odd_even.
+    `colors` holds the site masks of the colors on the level's (slab's)
+    sites, `blocks` the int32 block list of each (None with one color: all
+    blocks), which the direct block solves read."""
 
     def __init__(self, stencil, block_iter: int = 4, cycles: int = 1,
                  odd_even: bool = True, scheme: str = "red_black"):
@@ -212,6 +225,8 @@ class SchwarzPreconditioner:
             stencil.slab(torch.as_tensor(m.reshape(-1), dtype=rdtype,
                                          device=stencil.device))
             for m in color_masks(stencil.global_geom, scheme))
+        self.blocks = (None if len(self.colors) == 1 else
+                       tuple(color_blocks(c, stencil.geom) for c in self.colors))
 
     def __call__(self, eta, cycles: int | None = None):
         return sap_smooth(self.s, self.colors, eta.to(self.s.dtype),

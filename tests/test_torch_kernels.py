@@ -242,8 +242,9 @@ def test_dense_bf16_matvec_unaligned_rows(cuda, m):
 def test_dense_bf16_matvec_many_rhs(cuda, nb, m, R):
     """K6 over R right-hand sides x [R, nb, m] at rough16's two stored
     inverses and on rows that are not 16-byte aligned: one launch per 12
-    right-hand sides, each lane's result that of a batch-1 launch on it
-    alone."""
+    right-hand sides; each lane within 1e-5 of a batch-1 launch on it alone
+    (the tensor-core kernel sums in another order than the batch-1 kernel),
+    and its bits those of the same lane in a launch of two."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     A = coarse.compress(_cplx((nb, m, m), gen, torch.complex64, cuda))
     x = _cplx((R, nb, m), gen, torch.complex64, cuda)
@@ -252,8 +253,63 @@ def test_dense_bf16_matvec_many_rhs(cuda, nb, m, R):
     assert kernels.counts()["K6"] == -(-R // cuda_dense.MRHS_MAX)
     assert got.shape == x.shape
     assert _rel(got, cuda_dense.matvec_plain(A, x)) < 1e-5
-    for r in (0, R - 1):    # the batch-1 kernel's summation order, bit for bit
-        assert torch.equal(got[r], cuda_dense.matvec(A, x[r]))
+    for r in (0, R - 1):
+        assert _rel(got[r], cuda_dense.matvec(A, x[r])) < 1e-5
+        if 1 < R <= cuda_dense.MRHS_MAX:
+            other = (r + 1) % R
+            assert torch.equal(got[r], cuda_dense.matvec(A, x[[r, other]])[0])
+
+
+def _block_lists(nb, device):
+    """Block lists of a K6 test: at 256 blocks (a 4^4 block grid) one
+    red-black colour and one of sixteen; elsewhere every other block and
+    one block; then all blocks and none."""
+    if nb == 256:
+        c = torch.arange(256, device=device)
+        t, z, y, x = c // 64, c // 16 % 4, c // 4 % 4, c % 4
+        red = c[(t + z + y + x) % 2 == 0]
+        one16 = c[(t % 2 == 1) & (z % 2 == 0) & (y % 2 == 1) & (x % 2 == 1)]
+        lists = {"red": red, "one of sixteen": one16}
+    else:
+        lists = {"every other": torch.arange(0, nb, 2, device=device),
+                 "one": torch.tensor([nb - 1], device=device)}
+    lists.update({"all": torch.arange(nb, device=device),
+                  "none": torch.zeros(0, dtype=torch.int64, device=device)})
+    return {k: v.to(torch.int32) for k, v in lists.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb, m", [(1, 7168), (256, 896), (5, 90)],
+                         ids=["schur-inverse", "block-inverses", "unaligned-rows"])
+@pytest.mark.parametrize("R", [1, 2, 12])
+def test_dense_bf16_matvec_block_lists(cuda, nb, m, R):
+    """Both K6 kernels on a list of blocks: the listed blocks within 1e-5 of
+    the plain version (at batch 1 bit for bit those of an all-block launch),
+    every other block exactly zero, one launch (none for an empty list),
+    and two launches give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    A = coarse.compress(_cplx((nb, m, m), gen, torch.complex64, cuda))
+    x = _cplx((R, nb, m), gen, torch.complex64, cuda)
+    x = x[0] if R == 1 else x
+    full = cuda_dense.matvec(A, x)
+    for name, blocks in _block_lists(nb, cuda).items():
+        kernels.reset_counts()
+        got = cuda_dense.matvec(A, x, blocks)
+        assert kernels.counts()["K6"] == (1 if blocks.numel() else 0), name
+        listed = blocks.long()
+        others = torch.ones(nb, dtype=torch.bool, device=cuda)
+        others[listed] = False
+        assert bool((got[..., others, :] == 0).all()), name
+        if blocks.numel():
+            want = cuda_dense.matvec_plain(A, x, blocks)
+            assert _rel(got[..., listed, :], want[..., listed, :]) < 1e-5, name
+            if R == 1:
+                assert torch.equal(got[listed], full[listed]), name
+        assert torch.equal(got, cuda_dense.matvec(A, x, blocks)), name
+    with pytest.raises(ValueError):
+        cuda_dense.matvec(A, x, torch.tensor([0, 0], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_dense.matvec(A, x, torch.tensor([0], dtype=torch.int32))       # on the CPU
 
 
 @pytest.mark.gpu
