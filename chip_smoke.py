@@ -12,12 +12,14 @@ Phases, one result line each (or a few), in order:
               the card at the shapes of the rough16 solve (16^4 fine level:
               K1 at batch 1, 28 and 56 (the Galerkin build), K2 on block
               links on all sites and on the odd sites (the SAP's block
-              odd-even solve) at batch 1 and 28, on the Galerkin build's
+              odd-even solve) at batch 1 and 28 (and on the even sites at
+              batch 1), on the Galerkin build's
               face links at batch 56 and on the full links on the even and
               on the odd sites at batch 1 (method 4's D_eo / D_oe), K3 with
               the clover (also on the even sites at batch 1, method 4's
               A_ee) and with the odd-site inverse from its compact storage,
-              also of a slab at an odd global offset (parity_offset 1);
+              also at an odd global offset (parity_offset 1), on the whole
+              lattice and on a (1, 2, 1, 1) rank's slab shape;
               8^4 and 4^4 coarse levels with d = 56; K5 on rank 0's slab
               of the 8^4 level on the (1, 2, 1, 1) mesh, (8, 4, 8, 8) with z
               faces, and on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and
@@ -85,6 +87,26 @@ Phases, one result line each (or a few), in order:
               interpolation 4 that reads them bit for bit and solves, an
               interpolation-1 setup and solve, and rough16 with open time
               boundaries (bc 0, U_T of the last slice zeroed), each < 1e-10
+  4d. library (after phase 4c, on phase 4's solver for the diagnostics)
+              rough16 written as LIME, DDHMC and one file a rank of a
+              (1, 2, 1, 1) grid and read back, and `tools tobin` of the LIME
+              file, each bit-equal to the binary file's links; the compat
+              API from rough16.ini on the LIME-read links (plaquette to
+              1e-10): setup, wilson_solve (< 1e-10 in <= 12 outer
+              iterations), a solve with the clover scaled 1.1 / 0.9 (exact
+              relres against the scaled operator, moved by > 1e-3), the
+              unscaled solve again (the first to 1e-8, <= 12 iterations),
+              set_mass_for_next_solve(m0 + 0.01) and a solve, two set_conf
+              calls and a solve that runs update_setup (update_setup_after
+              2), each < 1e-10 within the ini's restarts; the self checks
+              (< 1e-5), test-vector analysis, smoother reduction (< 1) and
+              coarse reduction (<= the coarse tolerance) on phase 4's
+              hierarchy; the cli with --benchmark 3 --profile --rhs-batch 2
+              in process (exit 0, both profiling tables and the memory
+              line printed); an m0 scan over -0.5, -0.49, -0.48 with shift
+              updates (three rows < 1e-10); the launch counts of the
+              compat, cli and scan runs (K1-K4 must run in each) and the
+              phase's wall time
   5. sharded  the domain-decomposed main path: the same solve on a
               (1, 2, 1, 1) t/z process grid, two ranks spawned on this one
               card with the "gloo" transport (faces and sums cross the host:
@@ -155,7 +177,8 @@ PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
                 "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6"),
                 "multi": ("K1", "K2", "K3", "K4"),
-                "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6")}
+                "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6"),
+                "library": ("K1", "K2", "K3", "K4")}
 
 
 def fail(msg):
@@ -439,7 +462,10 @@ def check_kernels(results):
                         lambda: fast.dslash_hopping_soa(face, phi, lat), dtype,
                         dslash_work("K2", phi, face), dslash_library(face, phi, lat))
                 continue
-            for parity, sites in ((None, "all sites"), (ODD, "odd sites")):
+            blocks = ((None, "all sites"), (ODD, "odd sites"))
+            if B == 1:      # the block odd-even solve's other half
+                blocks += ((EVEN, "even sites"),)
+            for parity, sites in blocks:
                 compare(results, "K2", f"K2 hop (block links, {sites}) {lab}",
                         lambda: cuda_dslash.hopping(s.links_intra, phi, lat, parity),
                         lambda: fast.dslash_hopping_soa(s.links_intra, phi, lat, parity), dtype,
@@ -473,6 +499,18 @@ def check_kernels(results):
                         lambda: fast.clover_apply_soa(cd, co, phi, lat, ODD, off, compact=True),
                         dtype, dslash_work("K3", phi, clover=full, parity=ODD),
                         clover_library(*full, phi, lat, ODD, off))
+            if B == 1:      # a (1, 2, 1, 1) rank's slab shape at an odd offset
+                slat = (lat[0], lat[1] // 2, lat[2], lat[3])
+                sfull = tuple(t[..., :V // 2].contiguous() for t in full)
+                sphi = phi[..., :V // 2].contiguous()
+                scd, sco = (fast.compact_parity(t, slat, ODD, 1) for t in sfull)
+                compare(results, "K3", f"K3 clover inverse odd (compact, offset 1) slab "
+                        f"{slat} {tag} batch 1",
+                        lambda: cuda_dslash.clover(scd, sco, sphi, slat, ODD, 1, compact=True),
+                        lambda: fast.clover_apply_soa(scd, sco, sphi, slat, ODD, 1,
+                                                      compact=True),
+                        dtype, dslash_work("K3", sphi, clover=sfull, parity=ODD),
+                        clover_library(*sfull, sphi, slat, ODD, 1))
         del s
     d = 2 * params.depth[0].test_vectors
     cases = [("full K=9", (0, 9), None, None), ("hop K=8", (1, 9), None, None),
@@ -969,6 +1007,172 @@ def methods_path(paths, solver, k6_ms):
         fail("methods: bc 0 kept hopping links across the time boundary")
 
 
+def library_path(paths, solver):
+    """Phase "library": the gauge formats and tools, the compat embedding
+    API, the diagnostics on phase 4's hierarchy (`solver`), the cli's
+    --benchmark / --profile / --rhs-batch in process and an m0 scan, on
+    rough16 at full size."""
+    import contextlib
+    import io as pyio
+    import tempfile
+
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import (analysis, cli, compat, config, evaluation, io, kernels,
+                                      lime, profiling, tools)
+    from ddalphaamg_tpu_torch.operators import wilson
+
+    name = "library"
+    start = time.perf_counter()
+    conf = rough16_params().configuration
+    U, header = io.read_gauge_field(conf, anti_periodic=False)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        lime.write_gauge_field(path("rough16.lime"), U, header, anti_periodic=False)
+        io.write_gauge_field_ddhmc(path("rough16.ddhmc"), U, header, anti_periodic=False)
+        io.split_gauge_field(conf, path("rough16"), (1, 2, 1, 1))
+        read = {"LIME": lime.read_gauge_field(path("rough16.lime"), anti_periodic=False),
+                "DDHMC": io.read_gauge_field_ddhmc(path("rough16.ddhmc"), anti_periodic=False),
+                "multi-file (1, 2, 1, 1)": io.read_gauge_field_multi(
+                    path("rough16"), (1, 2, 1, 1), anti_periodic=False)}
+        with contextlib.redirect_stdout(pyio.StringIO()):
+            rc = tools.main(["tobin", path("rough16.lime"), path("rough16.bin")])
+        read["tools tobin of the LIME file"] = io.read_gauge_field(path("rough16.bin"),
+                                                                   anti_periodic=False)
+        for fmt, (links, plaq) in read.items():
+            if not np.array_equal(links, U):
+                fail(f"{name}: the {fmt} links differ from the binary file's")
+        if rc != 0:
+            fail(f"{name}: tools tobin exited {rc}")
+        UL = read["LIME"][0]
+    phase(name, t0, f"formats: {', '.join(read)} written and read back, links bit-equal to "
+          f"the binary file's (LIME plaquette {read['LIME'][1]:.13f}, file {header:.13f})")
+
+    # the compat embedding API from rough16.ini on the card
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    compat.dd_alpha_amg_init(compat.dd_alpha_amg_par(
+        param_file_path=INI, amg_params=compat.dd_alpha_amg_parameters(
+            number_of_levels=3, update_setup_after=2)), device="cuda")
+    plaq = compat.dd_alpha_amg_set_conf(UL)
+    if abs(plaq - PLAQ) > 1e-10:
+        fail(f"{name}: compat plaquette {plaq:.13f} != {PLAQ}")
+    setup_s = compat.dd_alpha_amg_setup()["setup_time"]
+    s = compat._solver
+    rhs = config.make_rhs("ones", s.lattice)
+    m0 = s.p.m0
+
+    def solve(label, at_most=12, check_op=None, **scale):
+        """A compat solve to 1e-10: exact relres (against check_op, else the
+        solver's operator) < 1e-10 in at most at_most outer iterations."""
+        t = time.perf_counter()
+        x, relres, st = compat.dd_alpha_amg_wilson_solve(rhs, tol=1e-10, **scale)
+        dt = time.perf_counter() - t
+        op = check_op or s.op
+        xs, b = torch.as_tensor(x, device=s.device), torch.as_tensor(rhs, device=s.device)
+        exact = float(torch.linalg.vector_norm(b - wilson.d_plus_clover(op, xs))
+                      / torch.linalg.vector_norm(b))
+        phase(name, t0, f"compat {label}: {dt:.3f} s, {st['iterations']} outer iterations, "
+              f"exact relres {exact:.6e} (solver {relres:.6e})")
+        if not (np.isfinite(x).all() and exact < 1e-10 and st["iterations"] <= at_most):
+            fail(f"{name}: compat {label} did not meet relres < 1e-10 in <= {at_most} "
+                 f"iterations")
+        return x
+
+    phase(name, t0, f"compat: init, set_conf (plaquette {plaq:.13f}), setup {setup_s:.3f} s")
+    x1 = solve("wilson_solve")
+    par = np.indices(s.lattice).sum(axis=0) % 2
+    f = torch.as_tensor(np.where(par == 0, 1.1, 0.9), device=s.device)
+    scaled = wilson.WilsonOperator(s.op.links, s.op.clover * f[..., None, None, None])
+    restarts = s.p.restart_length * s.p.max_restarts     # converges within the ini's
+    x2 = solve("scaled solve (even 1.1, odd 0.9)", restarts, scaled, scale_even=1.1,
+               scale_odd=0.9)
+    moved = float(np.linalg.norm(x2 - x1) / np.linalg.norm(x1))
+    x3 = solve("unscaled solve after it")
+    back = float(np.linalg.norm(x3 - x1) / np.linalg.norm(x1))
+    phase(name, t0, f"compat: the scaled solution moved by {moved:.3e}, the unscaled one "
+          f"after it is the first to {back:.3e}")
+    if not (moved > 1e-3 and back < 1e-8):
+        fail(f"{name}: compat clover scaling moved the solution by {moved:.3e} and the "
+             f"restored solve differs from the first by {back:.3e}")
+    compat.dd_alpha_amg_set_mass_for_next_solve(m0 + 0.01)
+    solve(f"set_mass_for_next_solve(m0 + 0.01 = {m0 + 0.01:g})", restarts)
+    for _ in range(2):
+        compat.dd_alpha_amg_set_conf(UL)
+    before = s.status.setup_time
+    solve("two set_conf calls later (update_setup_after = 2)", restarts)
+    st = compat._status
+    if (st.gauge_updates_since_last_setup_update != 0 or st.gauge_updates_since_last_setup != 2
+            or s.status.setup_time <= before):
+        fail(f"{name}: two set_conf calls did not run update_setup ({st})")
+    paths["library: compat"] = counts = kernels.counts()
+    phase(name, t0, "compat launches " + as_text(counts))
+    check_counts(name, counts)
+    compat.dd_alpha_amg_free()
+    del s
+    torch.cuda.empty_cache()
+
+    # the diagnostics on phase 4's hierarchy (complex64 levels)
+    t0 = time.perf_counter()
+    checks = analysis.run_self_checks(solver.mg)
+    phase(name, t0, "self checks " + ", ".join(f"{k} {v:.3e}" for k, v in checks.items()))
+    if len(checks) != 6 or not all(v < 1e-5 for v in checks.values()):
+        fail(f"{name}: a self check is not below 1e-5: {checks}")
+    rows = analysis.test_vector_analysis(solver.mg)
+    sr, cr = analysis.smoother_reduction(solver), analysis.coarse_reduction(solver.mg)
+    phase(name, t0, f"test vectors: {len(rows)}, |rho| {min(abs(r) for r, _ in rows):.4f} "
+          f"to {max(abs(r) for r, _ in rows):.4f}, residual {min(e for _, e in rows):.4f} "
+          f"to {max(e for _, e in rows):.4f}; smoother reduction {sr:.4e}, coarse "
+          f"reduction {cr:.4e} (coarse tolerance {solver.p.coarse_tol:g})")
+    if not (sr < 1 and cr <= solver.p.coarse_tol):
+        fail(f"{name}: smoother reduction {sr:.3e} not < 1 or coarse reduction {cr:.3e} "
+             f"above the coarse tolerance")
+
+    # the cli's benchmark, profile and multi-RHS modes in process
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pyio.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([INI, "--benchmark", "3", "--profile", "--rhs-batch", "2"])
+    profiling.PROF.enabled = False
+    profiling.PROF.reset()
+    text = out.getvalue()
+    print("\n".join("  " + line for line in text.splitlines()), flush=True)
+    paths["library: cli --profile"] = counts = kernels.counts()
+    phase(name, t0, f"cli --benchmark 3 --profile --rhs-batch 2: exit {rc}; launches "
+          + as_text(counts))
+    for want in ("benchmarking: 3 solves", "multi-RHS: 2 solves", "(2/2 converged)",
+                 "maximal device memory/MPI process", "| depth 0: fine_op (d_plus_clover)",
+                 "| depth 2: coarsest solve (OE-GCR)", "| depth 0: FULL CYCLE"):
+        if want not in text:
+            fail(f"{name}: the cli printed no {want!r}")
+    if rc != 0 or text.count("| kernel (per level)") != 2:
+        fail(f"{name}: the cli exited {rc} or printed not both profiling tables")
+    check_counts(name, counts)
+
+    # an m0 scan with shift updates
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    sc = evaluation.ScanConfig(scan_variable="m0", start_val=-0.5, end_val=-0.48,
+                               step_size=0.01, shift_update=True)
+    rows = evaluation.run_scan(rough16_params(), sc, device="cuda",
+                               printer=lambda t: print("\n".join("  " + line for line in
+                                                                 t.splitlines())))
+    paths["library: scan"] = counts = kernels.counts()
+    phase(name, t0, "m0 scan: " + "; ".join(
+        f"m0 {r.value:g} setup {r.setup_time:.3f} s, solve {r.solve_time:.3f} s, "
+        f"{r.solve_iters:g} iterations, relres {r.relres:.3e}" for r in rows))
+    if len(rows) != 3 or not all(r.relres < 1e-10 for r in rows):
+        fail(f"{name}: the m0 scan gave {len(rows)} rows, not three below 1e-10")
+    check_counts(name, counts)
+    phase(name, start, f"phase wall time (peak device memory since the cli "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+
+
 def sharded_rank(mesh, device, options=False):
     """One rank of the sharded rough16 solve (run by parallel/launch.run_ranks
     in a spawned process)."""
@@ -1067,6 +1271,7 @@ def main():
     paths["solve"] = dict(counts)
     paths["multi"] = multi_path("multi", solver)
     methods_path(paths, solver, k6_ms)
+    library_path(paths, solver)
     del solver
     torch.cuda.empty_cache()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)

@@ -73,6 +73,7 @@ from .operators.stencil import WilsonStencilSoA, shift_stencil
 from .operators.wilson import WilsonOperator, shift_diagonal
 from .parallel import comm
 from .parallel.mesh import gather_field, local_lattice, replicate, shard_operator
+from .profiling import FLOPS_FINE_FULL, PROF, solve_memory_mb
 from .smoothers import SchwarzPreconditioner
 from .solvers.fgmres import fgmres, fgmres_mp
 from .solvers.krylov import bicgstab, cgn
@@ -101,6 +102,9 @@ class SolveInfo:
     coarse_matvec_average: float = 0.0
     coarsest_inverse_applies: float = 0.0
     resvec: list = dataclasses.field(default_factory=list)
+    # the card's allocator high-water mark, else the Solver's tensor ledger
+    # (profiling.solve_memory_mb; reference main.h:88-140)
+    memory_mb: float = 0.0
 
 
 _SCHEMES = {1: "additive", 2: "red_black", 3: "sixteen_color"}
@@ -127,6 +131,8 @@ class Solver:
         # the fine stencil in the inner precision of the methods without
         # multigrid; rebuilt whenever the operator changes
         self._inner: Optional[WilsonStencilSoA] = None
+        # the operator slab the hierarchy's fine level was built from
+        self._mg_op: Optional[WilsonOperator] = None
         self.status = SetupStatus()
         self._inner_dtype = (torch.complex64 if params.mixed_precision
                              else torch.complex128)
@@ -243,6 +249,7 @@ class Solver:
                              f"{self.p.interpolation} and {self.p.num_levels} levels "
                              "runs no multigrid")
         self.mg = self.preconditioner = Multigrid(self._op_slab, self._mg_config())
+        self._mg_op = self._op_slab
         return self.mg
 
     def setup(self) -> SetupStatus:
@@ -335,6 +342,7 @@ class Solver:
         self._inner = None
         if self.mg is not None:
             self.mg.shift_update(delta, self._op_slab)
+            self._mg_op = self._op_slab
         elif self.preconditioner is not None:
             self.preconditioner = self._plain_preconditioner()
 
@@ -445,14 +453,25 @@ class Solver:
         dt = self._wall(time.perf_counter() - t0)
         st = self.mg.stats
         total = max(int(iters.sum()), 1)
+        mem = solve_memory_mb(self)
         infos = [SolveInfo(iterations=int(iters[i]), relres=float(relres[i]),
                            converged=bool(relres[i] < tol), solve_time=dt / B,
                            coarse_average=st["coarse_iterations"] / total,
                            coarse_matvec_average=st["coarse_matvecs"] / total,
                            coarsest_inverse_applies=st["coarsest_inverse_applies"] / B,
-                           resvec=[float(rv[i]) for rv in resvec])
+                           resvec=[float(rv[i]) for rv in resvec], memory_mb=mem)
                  for i in range(B)]
         return x_log, infos
+
+    def _profiled(self, fn, name, fine_op=False):
+        """fn timed by the profiler as the JAX package's solve hooks time
+        the fine operator and the preconditioner (its api.py:914-932; the
+        reference's PROF_PRECISION_START/STOP), the fine operator at
+        FLOPS_FINE_FULL a site of each lane; fn itself with PROF off."""
+        vol = int(np.prod(self.lattice))
+        per_call = ((lambda v: FLOPS_FINE_FULL * vol * (v.numel() // (12 * v.shape[-1])))
+                    if fine_op else (lambda v: 0.0))
+        return PROF.wrap(fn, name, per_call, self.device)
 
     def _solve_mp(self, b, tol, x0=None):
         """Outer loop of every lane of b [B, 12, V]: once per restart the
@@ -478,8 +497,20 @@ class Solver:
         x = torch.zeros_like(b) if x0 is None else x0.clone()
         iters = torch.zeros(b.shape[0], device=b.device)
         resvec = []
+        apply_fine = self._profiled(self.apply_operator, "fine_op (d_plus_clover)", True)
+
+        def wrap(prec):
+            return self._profiled(prec, "preconditioner (v-cycle)")
+
+        # the inner GCR runs on the solve operator: the hierarchy's fine level,
+        # unless that was built from another operator (a set_conf since the
+        # setup, or compat's setup mass and clover scaling), as the JAX
+        # package's FGMRES runs on Solver.op with the hierarchy as its
+        # preconditioner
+        gcr_op = (None if self._mg_op is None or self._mg_op is self._op_slab
+                  else self._inner_stencil().full_op)
         for restart in range(p.max_restarts + 1):
-            r = b if (restart == 0 and x0 is None) else b - self.apply_operator(x)
+            r = b if (restart == 0 and x0 is None) else b - apply_fine(x)
             nr = self._norms(r)
             relres = nr / norm_b
             resvec.append(relres)
@@ -489,7 +520,8 @@ class Solver:
             rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300), clip)
             z, it = self.mg.inner_restart(
                 r.to(self._inner_dtype), torch.as_tensor(rel_tol, device=b.device),
-                m=p.restart_length, active=torch.as_tensor(active, device=b.device))
+                m=p.restart_length, active=torch.as_tensor(active, device=b.device),
+                wrap=wrap, op=gcr_op)
             x = x + z.to(torch.complex128)
             iters = iters + it
         return x, iters.cpu().numpy().astype(int), relres, resvec
@@ -510,27 +542,32 @@ class Solver:
             infos.append(SolveInfo(iterations=res.iterations, relres=res.relres,
                                    converged=res.converged,
                                    solve_time=time.perf_counter() - t0,
-                                   resvec=res.resvec))
+                                   resvec=res.resvec, memory_mb=solve_memory_mb(self)))
         return np.stack(xs), infos
 
     def _solve_krylov(self, b, tol, x0):
         """One system [12, V]: method -1 CGN, mixed precision 2 FGMRES with a
         complex64 inner loop, else FGMRES in complex128."""
         p = self.p
+        fine = "fine_op (d_plus_clover)"
+        prec = self.preconditioner
+        if prec is not None:
+            prec = self._profiled(prec, "preconditioner (v-cycle)")
         if p.method == -1:
-            return cgn(self.outer.full_op, self.outer.dagger_op, b, x0=x0, tol=tol,
-                       max_iter=p.restart_length * p.max_restarts)
+            return cgn(self._profiled(self.outer.full_op, fine, True), self.outer.dagger_op,
+                       b, x0=x0, tol=tol, max_iter=p.restart_length * p.max_restarts)
         if p.mixed_precision == 2:
             inner = self._inner_stencil()
 
             def apply_mp(v):        # keeps v's precision
                 return (self.outer if v.dtype == torch.complex128 else inner).full_op(v)
 
-            return fgmres_mp(apply_mp, b, x0=x0, preconditioner=self.preconditioner,
-                             tol=tol, restart_length=p.restart_length,
+            return fgmres_mp(self._profiled(apply_mp, fine, True), b, x0=x0,
+                             preconditioner=prec, tol=tol,
+                             restart_length=p.restart_length,
                              max_restarts=p.max_restarts, inner_dtype=inner.dtype)
-        return fgmres(self.outer.full_op, b, x0=x0, preconditioner=self.preconditioner,
-                      tol=tol, restart_length=p.restart_length,
+        return fgmres(self._profiled(self.outer.full_op, fine, True), b, x0=x0,
+                      preconditioner=prec, tol=tol, restart_length=p.restart_length,
                       max_restarts=p.max_restarts)
 
     def true_residual(self, x, rhs) -> float:

@@ -1,9 +1,17 @@
 """Command-line entry point (reference main.c / top_level.c analog):
 
     python -m ddalphaamg_tpu_torch.cli <input.ini> [--device cuda|cpu] [--tol T]
+        [--benchmark N] [--profile] [--rhs-batch B]
 
 Reads a reference-format input file, builds the solver on the device, runs
-the setup and the solve, and prints a reference-shaped summary.  Every
+the setup and the solve, and prints a reference-shaped summary (the JAX
+package's cli.py, with --device in place of its --platform): --benchmark N
+repeats the solve N times and prints the mean and least solve time
+(reference WILSON_BENCHMARK, src/top_level.c:71), --rhs-batch B solves B
+random right-hand sides together with Solver.solve_multi, --profile prints
+the profiler's table of the solves and a per-level table of the hierarchy
+(profiling.py).  An ini with `evaluation: 1` runs its parameter scan
+instead (evaluation.py) and prints the scan's table.  Every
 `method` (-1 to 5) and `interpolation` (0, 1, 2, 4; 4 reads the test
 vectors from `test vector io file name`) of the ini runs.  A configuration
 path in the ini that does not exist is looked up beside the ini file.
@@ -44,7 +52,19 @@ def main(argv=None):
     ap.add_argument("--tol", type=float, default=None)
     ap.add_argument("--transport", choices=("nccl", "gloo"), default="nccl",
                     help="rank transport of a process grid (default nccl)")
+    ap.add_argument("--benchmark", type=int, default=0, metavar="N",
+                    help="repeat the solve N times, report avg/min "
+                         "(reference WILSON_BENCHMARK, src/top_level.c:71)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print the per-kernel profiling table")
+    ap.add_argument("--rhs-batch", type=int, default=0, metavar="B",
+                    help="after the main solve, solve B random right-hand "
+                         "sides together (Solver.solve_multi) and report the "
+                         "time a right-hand side")
     args = ap.parse_args(argv)
+    if args.profile:
+        from .profiling import PROF
+        PROF.enabled = True
 
     from . import config
 
@@ -70,12 +90,20 @@ def main(argv=None):
 
 
 def _run(params, args, mesh, device) -> int:
+    import numpy as np
+
     from . import api, config
 
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     if mesh is not None:
         say(f"process grid {mesh.dims} over {mesh.size} ranks "
             f"({mesh.comm.transport})")
+    if params.evaluation:
+        # parameter-scan mode (reference "evaluation: 1", src/var_table.c)
+        from .evaluation import ScanConfig, run_scan
+        run_scan(params, ScanConfig.from_params(params), printer=say, device=device,
+                 mesh=mesh)
+        return 0
 
     solver = api.Solver(params, device=device, mesh=mesh)
     say(f"configuration: {params.configuration}")
@@ -95,12 +123,43 @@ def _run(params, args, mesh, device) -> int:
     if solver.mg is not None:
         for name, sec in solver.mg.build_times.items():   # built lazily in the solve
             say(f"{name}: built in {sec:.3f} seconds (inside the solve time)")
+    if args.rhs_batch > 1:
+        rng = np.random.default_rng(params.seed + 1)
+        shape = (*solver.lattice, 4, 3)
+        bs = np.stack([rng.normal(size=shape) + 1j * rng.normal(size=shape)
+                       for _ in range(args.rhs_batch)])
+        t0 = time.perf_counter()
+        _, minfos = solver.solve_multi(bs, tol=args.tol)
+        mt = time.perf_counter() - t0
+        conv = sum(1 for i in minfos if i.converged)
+        say(f"+- multi-RHS: {args.rhs_batch} solves (batched) "
+            f"--------------------------+")
+        say(f"|      per-RHS time: {mt / args.rhs_batch:9.4f} seconds "
+            f"({conv}/{args.rhs_batch} converged) |")
+    if args.benchmark > 0:
+        # WILSON_BENCHMARK: repeat the solve, report avg/min
+        times = [info.solve_time]
+        for _ in range(args.benchmark - 1):
+            times.append(solver.solve(rhs, tol=args.tol)[1].solve_time)
+        say(f"+- benchmarking: {len(times)} solves "
+            f"-------------------------------------+")
+        say(f"|      avg solve time: {np.mean(times):9.4f} seconds        |")
+        say(f"|      min solve time: {np.min(times):9.4f} seconds        |")
     exact = solver.true_residual(x, rhs)
     say("+----------------------------------------------------------+")
     say(f"|       FGMRES iterations: {info.iterations:<6d} coarse average: {info.coarse_average:<6.2f}   |")
     say(f"| exact relative residual: ||r||/||b|| = {exact:e}      |")
     say(f"| elapsed wall clock time: {info.solve_time:<8.4f} seconds                |")
+    if info.memory_mb:
+        say(f"| maximal device memory/MPI process: {info.memory_mb:<8.1f} MB        |")
     say("+----------------------------------------------------------+")
+    if args.profile:
+        from .profiling import PROF, profile_hierarchy
+        say(PROF.table())
+        if solver.mg is not None:
+            # per-level kernel-class table (reference prof_print analog);
+            # every rank runs it, its calls hold collectives
+            say(profile_hierarchy(solver.mg).table())
     return 0 if info.converged else 1
 
 

@@ -503,13 +503,16 @@ class Multigrid:
                            "coarsest_inverse_applies"), counters.sum(dim=0).tolist()):
             self.stats[key] += c
 
-    def inner_restart(self, r, rel_tol, m: int, active=None):
+    def inner_restart(self, r, rel_tol, m: int, active=None, wrap=None, op=None):
         """One inner restart of the mixed-precision outer loop for every lane
         of r [B, 12, V]: m iterations of flexible GCR over the fine
         operator, preconditioned by the multigrid cycle, each lane stopped
         once its residual falls below its rel_tol (a float or a [B]
-        tensor); lanes off in `active` [B] do not iterate.  Returns
-        (z, iterations [B]), both on the device."""
+        tensor); lanes off in `active` [B] do not iterate.  op is the fine
+        operator of the GCR (the fine level's by default); wrap(prec), if
+        given, is what the GCR calls in place of the cycle prec (the
+        profiler's timing).  Returns (z, iterations [B]), both on the
+        device."""
         self._ensure_inverses()
         s = self.fine.stencil
         ktol = self._kcycle_tol(0, self.cfg.kcycle_tol)
@@ -517,7 +520,9 @@ class Multigrid:
         def prec(w):
             return self._cycle(0, w, ktol)
 
-        z, iters, _, counters = device_gcr(s.full_op, r.to(s.dtype), m=m,
+        if wrap is not None:
+            prec = wrap(prec)
+        z, iters, _, counters = device_gcr(op or s.full_op, r.to(s.dtype), m=m,
                                            tol=rel_tol, n_restarts=1, prec=prec,
                                            allsum=s.allsum, active=active)
         if counters is not None:

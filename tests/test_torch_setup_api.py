@@ -12,7 +12,8 @@ fields, two levels, 8 test vectors:
   (d) test-vector files written by one package and read by the other, bit
       for bit, one file and one file a vector; a Solver with
       interpolation 4 reading what write_test_vectors wrote solves in the
-      writer's iterations; HDF5 paths raise NotImplementedError;
+      writer's iterations; an HDF5 path round-trips against the JAX
+      package's HDF5 writer;
   (e) solve(x0=) from a converged x returns in 0 iterations; method 0 from a
       random x0 takes the JAX package's iterations;
   (f) open boundaries (bc 0) as the JAX package's test_api.py:98 builds
@@ -201,8 +202,12 @@ def test_test_vector_files_cross_read_bit_for_bit(tmp_path, single):
     v = io.read_vector(str(tmp_path / ("port" if single else "port.01")), (2, 2, 2, 4),
                        12 * (3 if single else 1))
     assert v.shape == (2, 2, 2, 4, 36 if single else 12)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        io.write_test_vectors(str(tmp_path / "tv.h5"), tvs)
+    h5 = {w: str(tmp_path / f"{w}.h5") for w in ("port", "jax")}
+    io.write_test_vectors(h5["port"], tvs, header=header)
+    jio.write_test_vectors(h5["jax"], tvs, header=header)
+    for path in h5.values():
+        np.testing.assert_array_equal(io.read_test_vectors(path, (2, 2, 2, 4), 3), tvs)
+        np.testing.assert_array_equal(jio.read_test_vectors(path, (2, 2, 2, 4), 3), tvs)
 
 
 @pytest.mark.parametrize("single", [True, False], ids=["one-file", "per-vector"])
