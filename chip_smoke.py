@@ -19,11 +19,17 @@ Phases, one result line each (or a few), in order:
               the clover (also on the even sites at batch 1, method 4's
               A_ee) and with the odd-site inverse from its compact storage,
               also at an odd global offset (parity_offset 1), on the whole
-              lattice and on a (1, 2, 1, 1) rank's slab shape;
+              lattice and on a (1, 2, 1, 1) rank's slab shape; K2 on the
+              full links on the odd sites of a (1, 1, 1, 2) rank's slab
+              (16, 16, 16, 8) at parity_offset 1 (a slab whose offset is
+              odd in x alone);
               8^4 and 4^4 coarse levels with d = 56; K5 on rank 0's slab
               of the 8^4 level on the (1, 2, 1, 1) mesh, (8, 4, 8, 8) with z
-              faces, and on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and
-              z faces, faces cut from a random global field), batch 1 and
+              faces, on the (2, 2, 1, 1) mesh, (4, 4, 8, 8) with t and z
+              faces, on the (1, 1, 2, 2) mesh, (8, 8, 4, 4) with y and x
+              faces, and on the (2, 2, 2, 2) mesh, (4, 4, 4, 4) with faces
+              on all four axes (faces cut from a random global field by
+              parallel/comm.face), batch 1 and
               28, and the batched applies of the setup (K4 at 4^4, batch 256:
               full, hop and self_inv odd, the Schur inverse's column build;
               K4 at 8^4, masked full, batch 56 for the Galerkin build and
@@ -114,8 +120,18 @@ Phases, one result line each (or a few), in order:
               exact relres recomputed by rank 0 from the gathered x must be
               < 1e-10 in <= 12 outer iterations, within 1 of phase 4, and
               every kernel of the path, K5 included, must have run
+  5b. grid4d  the domain-decomposed main path on a (1, 1, 2, 2) grid that
+              splits y and x: four gloo ranks on this card, local lattice
+              (16, 16, 8, 8), depth 1's slab (8, 8, 4, 4) sharded (K5 with
+              y and x faces), the coarsest level replicated; the checks of
+              phase 5 (ranks agree, exact relres < 1e-10 in <= 12 outer
+              iterations within 1 of phase 4, K1-K5 launched) and every K5
+              launch's faces are those of y and x; then, on the same ranks,
+              method 4 and CGN (method -1) with the ini's restarts as phase
+              4c runs them, their iterations within 2 % of phase 4c's, the
+              exact relres checked as there; the phase's wall time
   6. nccl     with two or more cards, the same solve with the "nccl"
-              transport on one card per rank ((2, 2, 1, 1) with four cards);
+              transport on one card per rank ((1, 1, 2, 2) with four cards);
               with one card a line says it was not run
   7. direct   phase 4 with the JAX package's accelerator options on (bf16
               coarse blocks, coarsest dense Schur inverse, direct block
@@ -135,7 +151,7 @@ Phases, one result line each (or a few), in order:
               the iterations are within 1 of phase 7
 
 The second-to-last lines are a JSON summary of the kernels (launches of
-K1-K4 from phase 4, K5 from phase 5, K4-bf16 and K6 from phase 7, K5-bf16
+K1-K4 from phase 4, K5 from phase 5 (phase 5b's under "launches_by_path"), K4-bf16 and K6 from phase 7, K5-bf16
 from phase 8, and under "launches_by_path" those of every path run; the
 times of the first case and, under "cases", of every case of phase 3; K6's
 device time in the three profiled runs under "device_ms_by_path") and
@@ -174,6 +190,7 @@ DSLASH_FLOPS = {"K1": 1320 + 576, "K2": 1320, "K3": 576}
 OPTIONS = ("coarse_block_bf16", "coarsest_direct", "smoother_direct")
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5"),
+                "grid4d": ("K1", "K2", "K3", "K4", "K5"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
                 "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6"),
                 "multi": ("K1", "K2", "K3", "K4"),
@@ -369,7 +386,7 @@ def dslash_work(key, phi, links=None, clover=None, parity=None):
     return moved, DSLASH_FLOPS[key] * V * batch // half
 
 
-def dslash_library(links, phi, lat, clover=None, parity=None):
+def dslash_library(links, phi, lat, clover=None, parity=None, parity_offset=0):
     """The library call for K1 (with clover = (cdiag, coff)) and K2: one
     torch.einsum over per-site 12 x 12 hop matrices (spin matrix (x) link,
     the backward ones at x - mu) and the neighbour fields stacked
@@ -397,7 +414,7 @@ def dslash_library(links, phi, lat, clover=None, parity=None):
         fields.append(phi)
     H = torch.stack(mats, dim=-1)
     if parity is not None:
-        H = H * fast.parity_mask(lat, parity, H.real.dtype, H.device)[:, None]
+        H = H * fast.parity_mask(lat, parity, H.real.dtype, H.device, parity_offset)[:, None]
     # stored [x, i, j, k] and [x, j, k, b]: no copy inside the einsum
     H = H.permute(2, 0, 1, 3).contiguous().permute(3, 1, 2, 0)
     stack = torch.stack(fields, dim=-1).permute(2, 1, 3, 0).contiguous().permute(3, 2, 1, 0)
@@ -499,6 +516,16 @@ def check_kernels(results):
                         lambda: fast.clover_apply_soa(cd, co, phi, lat, ODD, off, compact=True),
                         dtype, dslash_work("K3", phi, clover=full, parity=ODD),
                         clover_library(*full, phi, lat, ODD, off))
+            if B == 1:      # a (1, 1, 1, 2) rank's slab, offset odd in x alone
+                xlat = (*lat[:3], lat[3] // 2)
+                xlinks, xphi = (t.reshape(*t.shape[:-1], *lat)[..., :xlat[3]].reshape(
+                    *t.shape[:-1], -1).contiguous() for t in (s.links, phi))
+                compare(results, "K2", f"K2 hop (full links, odd sites) slab {xlat} at "
+                        f"offset 1 {tag} batch 1",
+                        lambda: cuda_dslash.hopping(xlinks, xphi, xlat, ODD, 1),
+                        lambda: fast.dslash_hopping_soa(xlinks, xphi, xlat, ODD, 1), dtype,
+                        dslash_work("K2", xphi, xlinks, parity=ODD),
+                        dslash_library(xlinks, xphi, xlat, parity=ODD, parity_offset=1))
             if B == 1:      # a (1, 2, 1, 1) rank's slab shape at an odd offset
                 slat = (lat[0], lat[1] // 2, lat[2], lat[3])
                 sfull = tuple(t[..., :V // 2].contiguous() for t in full)
@@ -552,14 +579,16 @@ def check_kernels(results):
 def check_halo_kernels(results, gen, glat, d):
     """K5 and K5-bf16 on rank 0's slab of the depth-1 level, on the
     (1, 2, 1, 1) mesh (z faces) and the (2, 2, 1, 1) mesh (t and z faces)
-    of the sharded paths, with faces cut from a random global field."""
+    of the sharded paths, the (1, 1, 2, 2) mesh (y and x faces) of phase
+    grid4d and the (2, 2, 2, 2) mesh (faces on all four axes), with faces
+    cut from a random global field."""
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse
     from ddalphaamg_tpu_torch.parallel.comm import face
     from ddalphaamg_tpu_torch.parallel.mesh import (SolverMesh, active_axes,
                                                     local_lattice, shard_field)
 
     dev = torch.device("cuda")
-    for dims in ((1, 2, 1, 1), (2, 2, 1, 1)):
+    for dims in ((1, 2, 1, 1), (2, 2, 1, 1), (1, 1, 2, 2), (2, 2, 2, 2)):
         mesh = SolverMesh(dims, 0)
         loc = local_lattice(mesh, glat)
         Pk = torch.randn((9, d, d, math.prod(loc)), generator=gen,
@@ -906,7 +935,8 @@ def methods_path(paths, solver, k6_ms):
     """Phase "methods": the other methods and the library API on rough16 at
     full size (the ini otherwise); `solver` is phase 4's, set up.  K6's
     device time in a profiled warm solve of method 3 with the options on
-    goes to k6_ms."""
+    goes to k6_ms.  Returns {method: (iterations, kind)} of methods 4 and
+    -1 (phase grid4d runs them again on its grid)."""
     import tempfile
 
     import numpy as np
@@ -938,9 +968,13 @@ def methods_path(paths, solver, k6_ms):
     del s3
     # the methods without multigrid
     run("method 2, SAP alone", method_params(2, 0), "converge", fine)
-    run("method 4, odd-even", method_params(4, 0), "converge", fine)
+    singles = {4: (run("method 4, odd-even", method_params(4, 0), "converge",
+                       fine)[1][1].iterations, "converge")}
     for method, what in ((-1, "CGN"), (0, "GMRES"), (5, "BiCGstab preconditioner")):
-        run(f"method {method}, {what}", method_params(method, 0), "honest", ("K1",))
+        _, (_, info) = run(f"method {method}, {what}", method_params(method, 0), "honest",
+                           ("K1",))
+        if method == -1:
+            singles[-1] = (info.iterations, "honest")
 
     # the library API on phase 4's solver
     m0 = solver.p.m0
@@ -1005,6 +1039,7 @@ def methods_path(paths, solver, k6_ms):
     T = s.op.links.shape[1]
     if s.op.links[0, [0, T - 2, T - 1]].abs().max() != 0:
         fail("methods: bc 0 kept hopping links across the time boundary")
+    return singles
 
 
 def library_path(paths, solver):
@@ -1173,13 +1208,25 @@ def library_path(paths, solver):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
 
 
-def sharded_rank(mesh, device, options=False):
+def sharded_rank(mesh, device, options=False, methods=()):
     """One rank of the sharded rough16 solve (run by parallel/launch.run_ranks
-    in a spawned process)."""
+    in a spawned process), then a solve of each of `methods` (without
+    multigrid, interpolation 0) on the same ranks.  The faces of every K5
+    launch are recorded by axes."""
     import numpy as np
 
     from ddalphaamg_tpu_torch import api, config, kernels
+    from ddalphaamg_tpu_torch.operators import cuda_coarse
 
+    k5_axes = {}
+    halo_apply = cuda_coarse.coarse_apply_halo
+
+    def recording(blocks, v, lattice, halos, *args, **kw):
+        key = "".join("tzyx"[mu] for mu in sorted(halos))
+        k5_axes[key] = k5_axes.get(key, 0) + 1
+        return halo_apply(blocks, v, lattice, halos, *args, **kw)
+
+    cuda_coarse.coarse_apply_halo = recording
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
     solver = api.Solver(rough16_params(options), device=device, mesh=mesh)
@@ -1194,19 +1241,40 @@ def sharded_rank(mesh, device, options=False):
                coarse_matvec_average=info.coarse_matvec_average,
                counts=kernels.counts(), build_times=solver.mg.build_times,
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
-               x_sum=complex(x.sum()))
+               x_sum=complex(x.sum()), k5_axes=dict(k5_axes),
+               sharded=[lvl.stencil.mesh is not None for lvl in solver.mg._levels()])
     if mesh.rank == 0:    # exact residual from the gathered x, logical operator
         out["exact"] = exact_relres(solver, x, rhs)
         out["finite"] = bool(np.isfinite(x).all()) and x.shape == (*solver.lattice, 4, 3)
+    del solver
+    out["methods"] = {}
+    for method in methods:
+        kernels.reset_counts()
+        s = api.Solver(method_params(method, 0), device=device, mesh=mesh)
+        s.read_conf()
+        setup_s = s.setup().setup_time
+        xm, im = s.solve(rhs)
+        run = dict(setup=setup_s, solve=im.solve_time, iterations=im.iterations,
+                   relres=im.relres, converged=im.converged, counts=kernels.counts(),
+                   x_sum=complex(xm.sum()))
+        if mesh.rank == 0:
+            run["exact"] = exact_relres(s, xm, rhs)
+            run["finite"] = bool(np.isfinite(xm).all()) and xm.shape == rhs.shape
+        out["methods"][method] = run
+        del s
     return out
 
 
-def sharded_path(name, dims, transport, devices, single_iterations, options=False):
-    """The sharded solve on spawned ranks; returns rank 0's launch counts."""
+def sharded_path(name, dims, transport, devices, single_iterations, options=False,
+                 methods=None):
+    """The sharded solve on spawned ranks, then each method of `methods`
+    ({method: (phase 4c's iterations on one rank, its kind in method_run)});
+    returns rank 0's launch counts of the multigrid run."""
     from ddalphaamg_tpu_torch.parallel import launch
 
     t0 = time.perf_counter()
-    res = launch.run_ranks(sharded_rank, dims, transport, devices, options)
+    res = launch.run_ranks(sharded_rank, dims, transport, devices, options,
+                           tuple(methods or ()))
     r0 = res[0]
     phase(name, t0, f"mesh {dims}, {len(res)} ranks, {transport} on "
           f"{', '.join(devices)}: plaquette {r0['plaq']:.13f}, setup "
@@ -1234,7 +1302,41 @@ def sharded_path(name, dims, transport, devices, single_iterations, options=Fals
              f"{r0['exact']:.3e})")
     if options and r0["coarse_matvec_average"] != 0:
         fail(f"{name}: the solve ran the coarsest GCR")
-    check_counts("sharded-direct" if options else "sharded", r0["counts"])
+    check_counts(name if name in PATH_KERNELS else "sharded", r0["counts"])
+    phase(name, t0, f"levels sharded {r0['sharded']}; rank 0's K5 launches by the axes "
+          f"of their faces: {r0['k5_axes']}")
+    split = "".join("tzyx"[mu] for mu in range(4) if dims[mu] > 1)
+    if r0["counts"]["K5"] + r0["counts"]["K5-bf16"] and set(r0["k5_axes"]) != {split}:
+        fail(f"{name}: K5 ran with the faces of {r0['k5_axes']}, not of the split axes {split}")
+    for method, (single, kind) in (methods or {}).items():
+        m0 = r0["methods"][method]
+        per_it = 1e6 * m0["solve"] / max(m0["iterations"], 1)
+        phase(name, t0, f"method {method} (no multigrid) on the grid: setup {m0['setup']:.3f} s, "
+              f"solve {m0['solve']:.3f} s, {m0['iterations']} iterations ({per_it:.0f} us "
+              f"each; one rank, phase methods: {single}), exact relres {m0['exact']:.6e} "
+              f"(solver {m0['relres']:.6e}); rank 0 launches "
+              + ", ".join(f"{k} {n}" for k, n in m0["counts"].items() if n))
+        keys = ("iterations", "relres", "x_sum")
+        if any(r["methods"][method][k] != m0[k] for r in res for k in keys):
+            fail(f"{name}: ranks disagree on method {method}")
+        if not m0["finite"]:
+            fail(f"{name}: method {method}'s solution is not a finite field of the lattice's "
+                 f"shape")
+        if abs(m0["iterations"] - single) > 0.02 * single:
+            fail(f"{name}: method {method} took {m0['iterations']} iterations, one rank "
+                 f"{single} (more than 2 % apart)")
+        limit = rough16_params().restart_length * rough16_params().max_restarts
+        if not (m0["converged"] or (kind == "honest" and m0["iterations"] == limit)):
+            fail(f"{name}: method {method} stopped after {m0['iterations']} iterations "
+                 f"unconverged")
+        if m0["converged"] and not m0["exact"] < 1e-10:
+            fail(f"{name}: method {method}'s exact relres {m0['exact']:.3e} not < 1e-10")
+        if abs(m0["exact"] - m0["relres"]) > 0.01 * m0["exact"]:
+            fail(f"{name}: method {method}'s exact relres {m0['exact']:.6e} and the solver's "
+                 f"{m0['relres']:.6e} differ by more than 1 %")
+        if m0["counts"]["K1"] == 0:
+            fail(f"{name}: method {method} never launched K1")
+    phase(name, t0, "phase wall time")
     return r0["counts"]
 
 
@@ -1270,16 +1372,18 @@ def main():
     counts, iterations, warm, solver = main_path()
     paths["solve"] = dict(counts)
     paths["multi"] = multi_path("multi", solver)
-    methods_path(paths, solver, k6_ms)
+    singles = methods_path(paths, solver, k6_ms)
     library_path(paths, solver)
     del solver
     torch.cuda.empty_cache()
     sharded = sharded_path("sharded", (1, 2, 1, 1), "gloo", ["cuda:0"] * 2, iterations)
     paths["sharded (rank 0)"] = sharded
     counts["K5"] = sharded["K5"]
+    paths["grid4d (rank 0)"] = sharded_path("grid4d", (1, 1, 2, 2), "gloo", ["cuda:0"] * 4,
+                                            iterations, methods=singles)
     n = torch.cuda.device_count()
     if n >= 2:
-        dims = (2, 2, 1, 1) if n >= 4 else (1, 2, 1, 1)
+        dims = (1, 1, 2, 2) if n >= 4 else (1, 2, 1, 1)
         sharded_path("nccl", dims, "nccl", [f"cuda:{i}" for i in range(math.prod(dims))],
                      iterations)
     else:

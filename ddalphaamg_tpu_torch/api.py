@@ -44,13 +44,13 @@ field, the hopping time links zeroed at global t in {0, T-2, T-1}, and the
 field's U_T on the last slice must be zero; reference
 dd_alpha_amg_set_conf, src/dd_alpha_amg.c:195-237).
 
-With a mesh (parallel/mesh.SolverMesh, one process per rank) the
-multigrid methods are domain-decomposed over a t/z process grid: every
-rank computes the plaquette and the complex128 clover on the global field
-and keeps its slab, solve scatters the right-hand side, the outer loop runs
-on slabs with global norms, and the solution is gathered so that solve
-returns the same global array on every rank.  The other methods raise on a
-mesh (ROADMAP A.12).
+With a mesh (parallel/mesh.SolverMesh, one process per rank) every method
+is domain-decomposed over a process grid that may split any of the four
+axes: every rank computes the plaquette and the complex128 clover on the
+global field and keeps its slab, solve scatters the right-hand side, the
+outer loop (the multigrid methods' and the host Krylov solvers') runs on
+slabs with global inner products, and the solution is gathered so that
+solve returns the same global array on every rank.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ from .operators.oddeven import OddEvenPreconditioner
 from .operators.stencil import WilsonStencilSoA, shift_stencil
 from .operators.wilson import WilsonOperator, shift_diagonal
 from .parallel import comm
-from .parallel.mesh import gather_field, local_lattice, replicate, shard_operator
+from .parallel.mesh import (check_blocks, gather_field, local_lattice, replicate,
+                            shard_operator)
 from .profiling import FLOPS_FINE_FULL, PROF, solve_memory_mb
 from .smoothers import SchwarzPreconditioner
 from .solvers.fgmres import fgmres, fgmres_mp
@@ -113,7 +114,7 @@ _SCHEMES = {1: "additive", 2: "red_black", 3: "sixteen_color"}
 class Solver:
     """Wilson-clover solver on one device (`device`, e.g. "cuda" or "cpu";
     nothing moves to another device behind the caller's back), or on this
-    rank's device of a t/z process grid (`mesh`; every rank constructs its
+    rank's device of a process grid (`mesh`; every rank constructs its
     Solver and calls the same methods in the same order)."""
 
     def __init__(self, params: SolverParams, device="cuda", mesh=None):
@@ -285,12 +286,13 @@ class Solver:
         """The preconditioner of a method without multigrid, on the fine
         stencil in the inner precision (None for methods -1 and 0)."""
         p = self.p
-        self._refuse_mesh()
         if p.method in (-1, 0):
             return None
         d0 = p.depth[0]
         s = self._inner_stencil()
         if p.method in (1, 2, 3):
+            if self.mesh is not None:
+                check_blocks(self.mesh, self.lattice, d0.block_lattice)
             return SchwarzPreconditioner(s, block_iter=d0.block_iter,
                                          cycles=d0.preconditioner_cycles,
                                          odd_even=p.odd_even, scheme=_SCHEMES[p.method])
@@ -299,16 +301,10 @@ class Solver:
                                          cycles=d0.preconditioner_cycles)
         if p.method == 5:
             def bicgstab_prec(eta):
-                return bicgstab(s.full_op, eta.to(s.dtype), tol=1e-1, max_iter=50).x
+                return bicgstab(s.full_op, eta.to(s.dtype), tol=1e-1, max_iter=50,
+                                mesh=self.mesh).x
             return bicgstab_prec
         raise ValueError(f"method: {p.method} unsupported (-1 to 5)")
-
-    def _refuse_mesh(self):
-        """The methods without multigrid run on one rank only: their host
-        Krylov loops take rank-local inner products."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"method {self.p.method} without multigrid on a "
-                                      "process grid is not ported (ROADMAP A.12)")
 
     def update_setup(self, iterations: int = 1) -> SetupStatus:
         """More setup iterations of the configured kind on the existing
@@ -530,7 +526,6 @@ class Solver:
         """The methods without multigrid, one right-hand side after the
         other (the JAX package's solve dispatch, api.py:937-979, without its
         accelerator branches)."""
-        self._refuse_mesh()
         xs, infos = [], []
         for i in range(rhs_batch.shape[0]):
             t0 = time.perf_counter()
@@ -555,7 +550,8 @@ class Solver:
             prec = self._profiled(prec, "preconditioner (v-cycle)")
         if p.method == -1:
             return cgn(self._profiled(self.outer.full_op, fine, True), self.outer.dagger_op,
-                       b, x0=x0, tol=tol, max_iter=p.restart_length * p.max_restarts)
+                       b, x0=x0, tol=tol, max_iter=p.restart_length * p.max_restarts,
+                       mesh=self.mesh)
         if p.mixed_precision == 2:
             inner = self._inner_stencil()
 
@@ -565,10 +561,11 @@ class Solver:
             return fgmres_mp(self._profiled(apply_mp, fine, True), b, x0=x0,
                              preconditioner=prec, tol=tol,
                              restart_length=p.restart_length,
-                             max_restarts=p.max_restarts, inner_dtype=inner.dtype)
+                             max_restarts=p.max_restarts, inner_dtype=inner.dtype,
+                             mesh=self.mesh)
         return fgmres(self._profiled(self.outer.full_op, fine, True), b, x0=x0,
                       preconditioner=prec, tol=tol, restart_length=p.restart_length,
-                      max_restarts=p.max_restarts)
+                      max_restarts=p.max_restarts, mesh=self.mesh)
 
     def true_residual(self, x, rhs) -> float:
         """||rhs - D x|| / ||rhs|| in complex128 (the reference's

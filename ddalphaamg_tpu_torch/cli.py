@@ -18,8 +18,8 @@ path in the ini that does not exist is looked up beside the ini file.
 
 An ini whose `d0 local lattice` is smaller than its `d0 global lattice`
 requests the process grid global / local (the reference's run script
-derives np the same way); only t and z may be split.  Start one process per
-rank with torchrun:
+derives np the same way), along any of t, z, y and x (`16 16 8 8` on a 16^4
+lattice: a (1, 1, 2, 2) grid).  Start one process per rank with torchrun:
 
     torchrun --nproc-per-node=N -m ddalphaamg_tpu_torch.cli <input.ini> \\
         [--transport nccl|gloo]

@@ -20,13 +20,16 @@
 // lattice passes the parity of its global offset (t0 + z0 + y0 + x0) & 1.
 //
 // K4 wraps every hop inside the lattice it is given.  K5 is the same
-// contraction on one slab of a lattice sharded along t and/or z (the TPU
-// kernel's "tz" layout, whose neighbor fields were fetched across shards by
-// ppermute): on a sharded axis a forward hop from the slab's last slice
-// reads the face received from the +mu neighbor rank, a backward hop from
-// the first slice the face received from the -mu neighbor; unsharded axes
-// wrap as in K4.  Faces are [batch, d, V / n_mu] with the face site index
-// (z, y, x) for t and (t, y, x) for z.
+// contraction on one slab of a lattice sharded along any of t, z, y and x
+// (the TPU kernel's "tz" layout, whose neighbor fields were fetched across
+// shards by ppermute, shards t and z; the port's slabs split all four
+// axes): on a sharded axis a forward hop from the slab's last slice reads
+// the face received from the +mu neighbor rank, a backward hop from the
+// first slice the face received from the -mu neighbor; unsharded axes wrap
+// as in K4.  Faces are [batch, d, V / n_mu], sites lexicographic in the
+// three other coordinates (x fastest; parallel/comm.face cuts them so):
+// the face site of x is (coordinates before mu) * stride[mu] + site %
+// stride[mu].
 //
 // Layout: fields [batch, d, V]; blocks [K, d (j), d (i), V], sites fastest,
 // each entry a complex number of the field's precision or, compressed, one
@@ -156,12 +159,25 @@ __device__ __forceinline__ void cmac(cplx<R>& acc, cplx<R> a, cplx<R> b) {
   acc.im = fma(a.im, b.re, acc.im);
 }
 
-// received faces of the sharded t (0) and z (1) axes; nullptr = unsharded
+// received faces of the sharded axes t (0), z (1), y (2), x (3); nullptr =
+// unsharded
 template <typename R>
 struct Halo {
-  const cplx<R>* fwd[2];  // v(x + mu) for the slab's last mu slice
-  const cplx<R>* bwd[2];  // v(x - mu) for the slab's first mu slice
+  const cplx<R>* fwd[4];  // v(x + mu) for the slab's last mu slice
+  const cplx<R>* bwd[4];  // v(x - mu) for the slab's first mu slice
 };
+
+// the received face of axis mu (fwd: v(x + mu), else v(x - mu)) or nullptr;
+// the unrolled selection keeps the kernel parameter h out of the stack,
+// where an index known only at run time would copy it
+template <typename R>
+__device__ __forceinline__ const cplx<R>* halo_face(const Halo<R>& h, int mu, bool fwd) {
+  const cplx<R>* f = nullptr;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    if (m == mu) f = fwd ? h.fwd[m] : h.bwd[m];
+  return f;
+}
 
 // where term k reads the field for one site: p -> entry (b, j = 0), ld =
 // the stride of j; p = nullptr where the term is dropped (masked hop, site
@@ -199,11 +215,13 @@ __device__ Src<R> term_source(const cplx<R>* v, const Halo<R>& h, const Lattice&
     const int r = c[mu] % mb;
     if (fwd ? (r == mb - 1) : (r == 0)) return s;
   }
-  if (HALO && mu < 2) {
-    const cplx<R>* face = fwd ? h.fwd[mu] : h.bwd[mu];
+  if (HALO) {
+    const cplx<R>* face = halo_face(h, mu, fwd);
     if (face != nullptr && c[mu] == (fwd ? L.n[mu] - 1 : 0)) {
       const int fv = V / L.n[mu];
-      const int nb = mu == 0 ? site - c[0] * L.stride[0] : c[0] * L.stride[1] + site % L.stride[1];
+      // the site without its mu coordinate: the coordinates before mu, then
+      // those after it (the lexicographic order of parallel/comm.face)
+      const int nb = site / (L.stride[mu] * L.n[mu]) * L.stride[mu] + site % L.stride[mu];
       s.p = face + (long long)b * d * fv + nb;
       s.ld = fv;
       return s;
@@ -605,15 +623,15 @@ int launch_coarse(void* out, const void* v, const void* blocks, Halo<R> h, int d
              : launch_b1<R, HALO, B, 1>(out, v, blocks, h, L, V, d, k0, k1, mb, parity, parity_offset, batch, st);
 }
 
+// faces: (fwd, bwd) of t, z, y, x in that order, 8 pointers
 template <typename R, typename B>
-int launch_halo(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
-                const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x, int batch,
-                int regime, void* stream) {
+int launch_halo(void* out, const void* v, const void* blocks, const void* const* faces, int d, int k0, int k1,
+                int t, int z, int y, int x, int batch, int regime, void* stream) {
   Halo<R> h;
-  h.fwd[0] = (const cplx<R>*)fwd_t;
-  h.bwd[0] = (const cplx<R>*)bwd_t;
-  h.fwd[1] = (const cplx<R>*)fwd_z;
-  h.bwd[1] = (const cplx<R>*)bwd_z;
+  for (int mu = 0; mu < 4; ++mu) {
+    h.fwd[mu] = (const cplx<R>*)faces[2 * mu];
+    h.bwd[mu] = (const cplx<R>*)faces[2 * mu + 1];
+  }
   return launch_coarse<R, true, B>(out, v, blocks, h, d, k0, k1, t, z, y, x, 0, 0, 0, 0, -1, 0, batch, regime,
                                    stream);
 }
@@ -621,7 +639,7 @@ int launch_halo(void* out, const void* v, const void* blocks, const void* fwd_t,
 template <typename R>
 Halo<R> no_halo() {
   Halo<R> h;
-  h.fwd[0] = h.fwd[1] = h.bwd[0] = h.bwd[1] = nullptr;
+  for (int mu = 0; mu < 4; ++mu) h.fwd[mu] = h.bwd[mu] = nullptr;
   return h;
 }
 
@@ -656,29 +674,32 @@ int ddaamg_coarse_bf16(void* out, const void* v, const void* blocks, int d, int 
                                              bx, parity, parity_offset, batch, regime, stream);
 }
 
-// K5: terms [k0, k1) on one slab with the received faces of the sharded t
-// and z axes (nullptr for an unsharded axis); regime as for K4.  Returns
-// cudaGetLastError() (or the launch's error).
+// K5: terms [k0, k1) on one slab with the received faces of the sharded
+// axes: (fwd, bwd) pairs of t, z, y and x, nullptr for an unsharded axis;
+// regime as for K4.  Returns cudaGetLastError() (or the launch's error).
 int ddaamg_coarse_halo_f32(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
-                           const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
+                           const void* fwd_z, const void* bwd_z, const void* fwd_y, const void* bwd_y,
+                           const void* fwd_x, const void* bwd_x, int d, int k0, int k1, int t, int z, int y, int x,
                            int batch, int regime, void* stream) {
-  return launch_halo<float, cplx<float>>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
-                                         regime, stream);
+  const void* faces[8] = {fwd_t, bwd_t, fwd_z, bwd_z, fwd_y, bwd_y, fwd_x, bwd_x};
+  return launch_halo<float, cplx<float>>(out, v, blocks, faces, d, k0, k1, t, z, y, x, batch, regime, stream);
 }
 
 int ddaamg_coarse_halo_f64(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
-                           const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
+                           const void* fwd_z, const void* bwd_z, const void* fwd_y, const void* bwd_y,
+                           const void* fwd_x, const void* bwd_x, int d, int k0, int k1, int t, int z, int y, int x,
                            int batch, int regime, void* stream) {
-  return launch_halo<double, cplx<double>>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
-                                           regime, stream);
+  const void* faces[8] = {fwd_t, bwd_t, fwd_z, bwd_z, fwd_y, bwd_y, fwd_x, bwd_x};
+  return launch_halo<double, cplx<double>>(out, v, blocks, faces, d, k0, k1, t, z, y, x, batch, regime, stream);
 }
 
 // K5-bf16: K5 on complex64 fields with blocks stored as bf16 (re, im) pairs.
 int ddaamg_coarse_halo_bf16(void* out, const void* v, const void* blocks, const void* fwd_t, const void* bwd_t,
-                            const void* fwd_z, const void* bwd_z, int d, int k0, int k1, int t, int z, int y, int x,
-                            int batch, int regime, void* stream) {
-  return launch_halo<float, bf16x2>(out, v, blocks, fwd_t, bwd_t, fwd_z, bwd_z, d, k0, k1, t, z, y, x, batch,
-                                    regime, stream);
+                            const void* fwd_z, const void* bwd_z, const void* fwd_y, const void* bwd_y,
+                            const void* fwd_x, const void* bwd_x, int d, int k0, int k1, int t, int z, int y,
+                            int x, int batch, int regime, void* stream) {
+  const void* faces[8] = {fwd_t, bwd_t, fwd_z, bwd_z, fwd_y, bwd_y, fwd_x, bwd_x};
+  return launch_halo<float, bf16x2>(out, v, blocks, faces, d, k0, k1, t, z, y, x, batch, regime, stream);
 }
 
 }  // extern "C"

@@ -95,14 +95,12 @@ def scan_values(sc: ScanConfig):
 
 def _reference_solution(solver, rhs) -> np.ndarray:
     """The error reference of a scan point: CGN on K1 and gamma5 K1 gamma5 in
-    complex128 to 1e-12 (reference track_cgn_error, src/init.c:934-937)."""
+    complex128 to 1e-12 (reference track_cgn_error, src/init.c:934-937), on
+    slabs with global inner products under a mesh."""
     from .solvers.krylov import cgn
 
-    if solver.mesh is not None:
-        raise NotImplementedError("error tracking on a process grid is not ported: its "
-                                  "CGN takes rank-local inner products (ROADMAP A.12)")
     res = cgn(solver.outer.full_op, solver.outer.dagger_op, solver._scatter(rhs),
-              tol=1e-12, max_iter=100000)
+              tol=1e-12, max_iter=100000, mesh=solver.mesh)
     return solver._gather(res.x)
 
 
@@ -110,7 +108,7 @@ def run_scan(params: SolverParams, sc: ScanConfig, printer=print, device="cuda",
              mesh=None):
     """Run the sweep on `device` (this rank's of `mesh`); returns the list
     of ScanRow (reference scan_var, src/var_table.c:68) after printing the
-    table.  Error tracking needs one rank (its CGN is host-driven)."""
+    table.  Error tracking's CGN takes global inner products on a mesh."""
     from . import api
 
     rows = []

@@ -84,10 +84,10 @@ _SIGNATURES = {
     "ddaamg_clover_f64": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "ddaamg_coarse_f32": [_P, _P, _P] + [_I] * 15 + [_P],
     "ddaamg_coarse_f64": [_P, _P, _P] + [_I] * 15 + [_P],
-    "ddaamg_coarse_halo_f32": [_P] * 7 + [_I] * 9 + [_P],
-    "ddaamg_coarse_halo_f64": [_P] * 7 + [_I] * 9 + [_P],
+    "ddaamg_coarse_halo_f32": [_P] * 11 + [_I] * 9 + [_P],
+    "ddaamg_coarse_halo_f64": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_coarse_bf16": [_P, _P, _P] + [_I] * 15 + [_P],
-    "ddaamg_coarse_halo_bf16": [_P] * 7 + [_I] * 9 + [_P],
+    "ddaamg_coarse_halo_bf16": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ddaamg_dense_bf16_mrhs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

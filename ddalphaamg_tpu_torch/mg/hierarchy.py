@@ -24,7 +24,8 @@ sides, and a single right-hand side is batch 1 of the same code.  The
 cycles' coarse-work counters stay on the device ([B, 3]) and are added to
 stats once per preconditioner call or inner restart.
 
-Under a mesh (MGConfig.mesh, a t/z process grid) the fine level and every
+Under a mesh (MGConfig.mesh, a process grid over any of the four axes)
+the fine level and every
 intermediate level whose slab keeps at least min_local_sites sites are
 sharded: each rank holds its slab of the stencil, the test vectors and P,
 and the aggregates divide the slab.  The coarsest level, and any level
@@ -50,7 +51,12 @@ The inverses are built lazily at the first cycle after the setup (never
 during bootstrap_setup), stored in bf16 with coarse_block_bf16, dropped by
 re_setup, and timed (Multigrid.build_times).  On a mesh the replicated
 coarsest level builds its inverse redundantly on every rank, and a sharded
-level the inverses of the blocks of its slab.
+level the inverses of the blocks of its slab.  On a mesh that splits y or
+x the JAX package runs its logical layouts (its api.py:199-204, and its
+parallel/mesh.py:161-187 refuses the packed ones there), whose coarse
+stencils have no bf16 copy: there coarse_block_bf16 leaves the coarse
+blocks in full precision and stores only the inverses in bf16, as the JAX
+package does (its hierarchy.py:526-535, :595-604, :613-624).
 """
 
 from __future__ import annotations
@@ -114,7 +120,7 @@ class MGConfig:
     scheme: str = "red_black"
     dtype: torch.dtype = torch.complex64
     seed: int = 42
-    # t/z process grid (parallel/mesh.SolverMesh) or None for one rank
+    # process grid (parallel/mesh.SolverMesh) or None for one rank
     mesh: object = None
     # an intermediate level whose slab would hold fewer sites is replicated
     # instead of sharded (the JAX package's default, mg/hierarchy.py:315)
@@ -381,9 +387,11 @@ class Multigrid:
 
     def _cycle_view(self, level: MGLevel):
         """The stencil the cycles apply at this level: the level's stencil,
-        or with coarse_block_bf16 (depth > 0) its bf16 copy, made at first
-        use after each re_setup."""
-        if not self.cfg.coarse_block_bf16 or level.depth == 0:
+        or with coarse_block_bf16 (depth > 0, no y/x split: module note) its
+        bf16 copy, made at first use after each re_setup."""
+        mesh = self.cfg.mesh
+        if (not self.cfg.coarse_block_bf16 or level.depth == 0
+                or (mesh is not None and mesh.splits_yx)):
             return level.stencil
         if level.cycle_stencil is None:
             level.cycle_stencil = level.stencil.compress()

@@ -10,11 +10,11 @@ Packed layout read by K4 and K5: blocks [K, d (j), d (i), V] with sites
 fastest; term k = 0 is the self-coupling A, k = 1 + mu the forward coupling
 Df_mu to phi(x + mu), k = 5 + mu the backward coupling Db_mu to phi(x - mu).
 
-On one slab of a lattice sharded along t and/or z, the hops that leave the
-slab read faces received from the neighbor ranks: halos = {mu: (fwd, bwd)}
-with fwd = v(x + mu) on the slab's last mu slice and bwd = v(x - mu) on its
-first, each [*batch, d, V / n_mu] in lexicographic order of the remaining
-coordinates.
+On one slab of a lattice sharded along any of t, z, y and x, the hops that
+leave the slab read faces received from the neighbor ranks: halos = {mu:
+(fwd, bwd)} with fwd = v(x + mu) on the slab's last mu slice and bwd =
+v(x - mu) on its first, each [*batch, d, V / n_mu] in lexicographic order
+of the remaining coordinates (parallel/comm.face).
 
 Compressed blocks (the JAX package's CoarseStencilSoA.compress, stencil.py:
 385-403) are the same tensor rounded to bfloat16 and stored as a real

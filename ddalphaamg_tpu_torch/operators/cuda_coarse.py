@@ -90,13 +90,13 @@ def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
 
 
 def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9), kernel=None):
-    """K5: the terms [k0, k1) on one slab of a t/z-sharded lattice; halos =
-    {mu: (fwd, bwd)} for the sharded axes mu in (0, 1), each face
-    [*batch, d, V / lattice[mu]] (operators/coarse.py describes them);
+    """K5: the terms [k0, k1) on one slab of a sharded lattice; halos =
+    {mu: (fwd, bwd)} for the sharded axes mu among t, z, y, x (0-3), each
+    face [*batch, d, V / lattice[mu]] (operators/coarse.py describes them);
     kernel as in the module note."""
     lattice = tuple(lattice)
-    if not halos or any(mu not in (0, 1) for mu in halos):
-        raise ValueError(f"K5 takes faces of the t and/or z axes, got {sorted(halos)}")
+    if not halos or any(mu not in range(4) for mu in halos):
+        raise ValueError(f"K5 takes faces of the axes 0-3, got {sorted(halos)}")
     if v.device.type == "cpu":
         return coarse_apply_halo_plain(blocks, v, lattice, halos, terms)
     faces = [f for mu in sorted(halos) for f in halos[mu]]
@@ -112,7 +112,7 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9), kernel=None):
     fn = getattr(kernels.lib(), f"ddaamg_coarse_halo_{inst}")
     kernels.KERNELS["K5-bf16" if inst == "bf16" else "K5"].launches += 1
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(),
-            *ptr.get(0, none), *ptr.get(1, none), d, *terms, *lattice, batch,
+            *(p for mu in range(4) for p in ptr.get(mu, none)), d, *terms, *lattice, batch,
             _REGIME[kernel], kernels.stream_ptr(v.device))
     kernels.check(rc, "coarse halo")
     return out

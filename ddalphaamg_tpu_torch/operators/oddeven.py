@@ -20,25 +20,29 @@ odd-site clover inverse, A_ee is K3 on the clover with the even parity.
 Fields stay whole [*, 12, V], with zeros on the sites of the other parity.
 The parity kernels need an even x extent, which the stencil's compact
 inverse already asks for.
+
+On a slab (a stencil with a mesh) the parities count global coordinates
+(the slab's offset parity, mesh.parity), D_eo / D_oe add the face
+corrections of the split axes on the sites of their parity
+(parallel/shard_ops.wilson_hopping), and the GMRES takes global inner
+products.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from ..parallel import shard_ops
 from ..solvers.fgmres import fgmres
 from . import cuda_dslash
 from .stencil import EVEN, ODD, WilsonStencilSoA
 
 
 class OddEvenOperator:
-    """The parity pieces of the fine Wilson-clover operator of a stencil (one
-    rank: the hops read no faces)."""
+    """The parity pieces of the fine Wilson-clover operator of a stencil (a
+    rank's slab of it under a mesh)."""
 
     def __init__(self, s: WilsonStencilSoA):
-        if s.mesh is not None:
-            raise NotImplementedError("odd-even preconditioning on a process grid is not "
-                                      "ported (ROADMAP A.12)")
         self.s = s
 
     @property
@@ -54,15 +58,19 @@ class OddEvenOperator:
         """A_oo^-1 v (odd sites)."""
         return self.s.self_inv(v, ODD)
 
+    def _hop(self, v, parity):
+        s = self.s
+        if s.mesh is not None:
+            return shard_ops.wilson_hopping(s.mesh, s.links, v, s.lattice, parity)
+        return cuda_dslash.hopping(s.links, v, s.lattice, parity, s.parity_offset)
+
     def hop_from_odd(self, v):
         """D_eo v: the hopping term on the even sites, from v's odd sites."""
-        s = self.s
-        return cuda_dslash.hopping(s.links, v, s.lattice, EVEN, s.parity_offset)
+        return self._hop(v, EVEN)
 
     def hop_from_even(self, v):
         """D_oe v: the hopping term on the odd sites, from v's even sites."""
-        s = self.s
-        return cuda_dslash.hopping(s.links, v, s.lattice, ODD, s.parity_offset)
+        return self._hop(v, ODD)
 
     def schur(self, v):
         """S v = A_ee v - D_eo A_oo^-1 D_oe v on the even sites
@@ -87,7 +95,7 @@ def solve_oddeven(oe: OddEvenOperator, b, tol=1e-10, restart_length=50,
     """D x = b through the even-site Schur complement: GMRES on S x_e = b_e',
     then the odd reconstruction (solve_oddeven_PRECISION)."""
     res = fgmres(oe.schur, oe.even_rhs(b), tol=tol, restart_length=restart_length,
-                 max_restarts=max_restarts)
+                 max_restarts=max_restarts, mesh=oe.s.mesh)
     return dataclasses.replace(res, x=oe.reconstruct(b, res.x))
 
 

@@ -1,5 +1,6 @@
-"""Domain decomposition of the solve over a t/z process grid (the
-reference's MPI layer; the JAX package's ddalphaamg_tpu/parallel).
+"""Domain decomposition of the solve over a process grid that splits any of
+the four axes t, z, y, x (the reference's MPI layer; the JAX package's
+ddalphaamg_tpu/parallel).
 
 One process per rank with torch.distributed.  Fine and intermediate levels
 are sharded into slabs, with half-spinor face exchange on the fine level

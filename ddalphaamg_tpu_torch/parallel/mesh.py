@@ -8,12 +8,14 @@ its extents, its rank (row-major over (t, z, y, x), x fastest, as the JAX
 package lays out its devices), its coordinates and neighbors, and the
 communicator of parallel/comm.py.
 
-A sharded level holds on each rank a slab: its [T_l, Z_l, Y, X] block of
-the global lattice, in the dof-major layout [*, dof, V_l] of every level.
-Only t and z may be split: the layout fuses Y*X like the JAX package's SoA
-fast path (which raises for y/x meshes, parallel/mesh.py:163-166,184-187).
-A level is sharded only when every split axis divides its lattice; other
-levels are replicated (every rank holds the whole level).
+A sharded level holds on each rank a slab: its [T_l, Z_l, Y_l, X_l] block
+of the global lattice, in the dof-major layout [*, dof, V_l] of every level
+(sites lexicographic, x fastest), so any of the four axes may be split: a
+y or x slab is cut like a t or z slab.  An axis is split where the mesh
+extent is above 1 and divides the lattice (the JAX package's per-axis
+rule, its parallel/mesh.py:108-113, which shards every axis of its logical
+layout); a level is sharded only when every split axis divides its
+lattice, other levels are replicated (every rank holds the whole level).
 """
 
 from __future__ import annotations
@@ -67,10 +69,6 @@ class SolverMesh:
         self.dims = tuple(int(d) for d in self.dims)
         if len(self.dims) != 4 or min(self.dims) < 1:
             raise ValueError(f"mesh extents must be 4 positive ints, got {self.dims}")
-        if self.dims[2] > 1 or self.dims[3] > 1:
-            raise ValueError(
-                "the dof-major layout fuses Y*X: meshes split t and z only "
-                f"(the logical fine layout for y/x meshes is not ported), got {self.dims}")
         if not 0 <= self.rank < self.size:
             raise ValueError(f"rank {self.rank} outside a mesh of {self.size}")
 
@@ -99,6 +97,12 @@ class SolverMesh:
         """Global coordinates of the slab's site 0."""
         return tuple(self.coords[mu] * local[mu] for mu in range(4))
 
+    @property
+    def splits_yx(self) -> bool:
+        """True where the grid splits y or x (the JAX package runs its
+        logical layouts there, with no bf16 coarse blocks)."""
+        return self.dims[2] > 1 or self.dims[3] > 1
+
     def parity(self, local) -> int:
         """Parity of the slab's global offset: (t0 + z0 + y0 + x0) & 1."""
         return sum(self.offsets(local)) & 1
@@ -115,7 +119,7 @@ def make_solver_mesh(n_devices: int | None = None, dims=None, lattice=None,
 
 def active_axes(mesh, lattice) -> tuple:
     """The axes along which a level of this lattice is split."""
-    return tuple(mu for mu in (0, 1)
+    return tuple(mu for mu in range(4)
                  if mesh.dims[mu] > 1 and lattice[mu] % mesh.dims[mu] == 0)
 
 

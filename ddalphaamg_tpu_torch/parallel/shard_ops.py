@@ -2,12 +2,12 @@
 wilson_sharded / coarse_sharded, ddalphaamg_tpu/parallel/shard_ops.py:
 150-227):
 
-  * fine full_op (and the Galerkin build's face hops): the local K1 / K2,
-    which wraps T and Z inside the slab, plus the half-spinor face
-    corrections of parallel/soa_halo.py;
-  * coarse full_op / hop: K5 on the slab with the t / z faces received from
-    the neighbor ranks (the coarse hopping exchange,
-    src/coarse_oddeven_generic.c:447-583).
+  * fine full_op (and the Galerkin build's face hops, and method 4's
+    parity hops): the local K1 / K2, which wraps every axis inside the
+    slab, plus the half-spinor face corrections of parallel/soa_halo.py;
+  * coarse full_op / hop: K5 on the slab with the faces of every split
+    axis, t, z, y or x, received from the neighbor ranks (the coarse
+    hopping exchange, src/coarse_oddeven_generic.c:447-583).
 
 Every other stencil operator (block_op, self_op, self_inv, hop_intra) is
 the local kernel with zero communication: Schwarz blocks divide the slab
@@ -31,10 +31,11 @@ def wilson_full(mesh, links, cdiag, coff, v, lattice):
     return face_corrections(mesh, links, v, out, lattice)
 
 
-def wilson_hopping(mesh, links, v, lattice):
-    """The hopping term on one slab: K2 plus the face corrections."""
-    out = cuda_dslash.hopping(links, v, lattice)
-    return face_corrections(mesh, links, v, out, lattice)
+def wilson_hopping(mesh, links, v, lattice, parity=None):
+    """The hopping term on one slab: K2 plus the face corrections; with a
+    parity, on the sites of that parity only (global parity)."""
+    out = cuda_dslash.hopping(links, v, lattice, parity, mesh.parity(lattice))
+    return face_corrections(mesh, links, v, out, lattice, parity)
 
 
 def coarse_hops(mesh, Pk, v, lattice, terms):

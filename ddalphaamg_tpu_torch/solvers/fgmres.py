@@ -15,7 +15,11 @@ single-reduce variants), which rebuilds the reference's fgmres_PRECISION
 Vectors are tensors of any shape on any device (the port's dof-major
 fields [12, V]); the operator and the preconditioner map that shape to
 itself.  Each iteration reads the device twice (h and the norm): correct
-and slow, as a host-driven loop is.
+and slow, as a host-driven loop is.  With a mesh (parallel/mesh.SolverMesh)
+the vectors are this rank's slabs and every inner product is the global
+sum, one all-reduce each (parallel/comm.all_reduce_sum: the same bits on
+every rank, so all ranks take the same branches), as the JAX package's
+inner products on sharded arrays are global.
 
 h = V^H w is a product and a sum per basis vector (torch.linalg.vecdot),
 never a matrix product: a batched complex64 matrix product over n = 12 *
@@ -25,11 +29,14 @@ recurrence (the same trap as device_gmres.py's alpha).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import comm
 
 
 @dataclass
@@ -42,14 +49,23 @@ class FGMRESResult:
     relres_true: float = -1.0    # the exact recompute of restest (FGMRES_RESTEST)
 
 
-def _norm(v) -> float:
-    return float(torch.linalg.vector_norm(v))
+def _allsum(t, mesh):
+    """t summed over the ranks of the mesh (t itself on one rank)."""
+    return t if mesh is None else comm.all_reduce_sum(mesh, t)
 
 
-def _orthogonalize(V, j: int, w):
+def _norm(v, mesh=None) -> float:
+    """The 2-norm of v (of the global field under a mesh)."""
+    if mesh is None:
+        return float(torch.linalg.vector_norm(v))
+    f = v.reshape(1, -1)
+    return math.sqrt(float(_allsum(torch.linalg.vecdot(f, f).real, mesh)[0]))
+
+
+def _orthogonalize(V, j: int, w, mesh=None):
     """One classical Gram-Schmidt step of w [n] against the rows 0..j of V;
     returns (w_orth, h [j + 1] as complex128 numpy)."""
-    h = torch.linalg.vecdot(V[:j + 1], w)
+    h = _allsum(torch.linalg.vecdot(V[:j + 1], w), mesh)
     return w - h @ V[:j + 1], h.cpu().numpy().astype(np.complex128)
 
 
@@ -83,7 +99,7 @@ def _back_substitute(H, gamma, j_used: int) -> np.ndarray:
 
 def _restart_cycle(op_flat: Callable, prec_flat: Optional[Callable], r, gamma0: float,
                    norm_r0: float, m: int, dtype, tol: float, reorthogonalize: bool,
-                   rotate_on_breakdown: bool):
+                   rotate_on_breakdown: bool, mesh=None):
     """One restart cycle: up to m Arnoldi steps from the residual r, with
     the basis V and the preconditioned basis Z in dtype, the Givens QR
     update of H on the host, and the correction by back substitution.  A
@@ -108,11 +124,11 @@ def _restart_cycle(op_flat: Callable, prec_flat: Optional[Callable], r, gamma0: 
             w = op_flat(Z[j])
         else:
             w = op_flat(V[j])
-        w, h = _orthogonalize(V, j, w.to(dtype))
+        w, h = _orthogonalize(V, j, w.to(dtype), mesh)
         if reorthogonalize:
-            w, h2 = _orthogonalize(V, j, w)
+            w, h2 = _orthogonalize(V, j, w, mesh)
             h = h + h2
-        hnorm = _norm(w)
+        hnorm = _norm(w, mesh)
         H[:j + 1, j] = h
         H[j + 1, j] = hnorm
         if hnorm > 1e-15:
@@ -150,11 +166,13 @@ def _flat(fn: Optional[Callable], shape):
 def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
            preconditioner: Optional[Callable] = None, tol: float = 1e-10,
            restart_length: int = 50, max_restarts: int = 20,
-           reorthogonalize: bool = False, restest: bool = False) -> FGMRESResult:
+           reorthogonalize: bool = False, restest: bool = False,
+           mesh=None) -> FGMRESResult:
     """Solve apply_op(x) = b to relative residual tol (relative to the
     first restart's residual ||b - A x0||), in b's dtype.  The
     preconditioner may run in another precision; its output is cast to b's
-    dtype, and the Krylov basis stays in b's dtype."""
+    dtype, and the Krylov basis stays in b's dtype.  mesh: the module
+    note."""
     shape = b.shape
     bf = b.reshape(-1)
     op_flat, prec_flat = _flat(apply_op, shape), _flat(preconditioner, shape)
@@ -166,7 +184,7 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
     gamma_jp1 = 1.0
     for ol in range(max_restarts):
         r = bf if (ol == 0 and x0 is None) else bf - op_flat(x)
-        gamma0 = _norm(r)
+        gamma0 = _norm(r, mesh)
         if norm_r0 is None:
             norm_r0 = gamma0
             if norm_r0 == 0.0:
@@ -176,7 +194,7 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
             break
         dx, its, gamma_jp1, status, rv = _restart_cycle(
             op_flat, prec_flat, r, gamma0, norm_r0, restart_length, bf.dtype, tol,
-            reorthogonalize, rotate_on_breakdown=False)
+            reorthogonalize, rotate_on_breakdown=False, mesh=mesh)
         total_iters += its
         resvec += rv
         x = x + dx
@@ -185,7 +203,7 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
     relres = float(gamma_jp1) / norm_r0 if norm_r0 else 0.0
     relres_true = -1.0
     if restest and norm_r0:
-        relres_true = _norm(bf - op_flat(x)) / norm_r0
+        relres_true = _norm(bf - op_flat(x), mesh) / norm_r0
     return FGMRESResult(x.reshape(shape), total_iters, relres, status == "converged",
                         resvec, relres_true=relres_true)
 
@@ -193,7 +211,8 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
 def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
               preconditioner: Optional[Callable] = None, tol: float = 1e-10,
               restart_length: int = 10, max_restarts: int = 100,
-              inner_dtype=torch.complex64, outer_dtype=torch.complex128) -> FGMRESResult:
+              inner_dtype=torch.complex64, outer_dtype=torch.complex128,
+              mesh=None) -> FGMRESResult:
     """Mixed-precision restarted FGMRES (reference fgmres_MP): the true
     residual, the solution and the Givens recurrences in outer_dtype (the
     latter on the host), the Arnoldi basis V, Z, the inner operator applies
@@ -201,7 +220,7 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
     precision: it is called with outer_dtype vectors for the restart
     residual and inner_dtype vectors inside the Arnoldi loop.  A
     convergence seen by the inner estimate is verified by one more true
-    residual."""
+    residual.  mesh: the module note."""
     shape = b.shape
     bf = b.reshape(-1).to(outer_dtype)
     op_flat, prec_flat = _flat(apply_op, shape), _flat(preconditioner, shape)
@@ -213,7 +232,7 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
     relres = 1.0
     for ol in range(max_restarts):
         r = bf if (ol == 0 and x0 is None) else bf - op_flat(x)
-        gamma0 = _norm(r)
+        gamma0 = _norm(r, mesh)
         if norm_r0 is None:
             norm_r0 = gamma0
             if norm_r0 == 0.0:
@@ -224,7 +243,7 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
             break
         dx, its, _, status, rv = _restart_cycle(
             op_flat, prec_flat, r, gamma0, norm_r0, restart_length, inner_dtype, tol,
-            False, rotate_on_breakdown=True)
+            False, rotate_on_breakdown=True, mesh=mesh)
         total_iters += its
         resvec += rv
         x = x + dx.to(outer_dtype)
@@ -232,7 +251,7 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
             break
         status = None           # re-verified by the true residual at the top
     if status is None and norm_r0:
-        relres = _norm(bf - op_flat(x)) / norm_r0
+        relres = _norm(bf - op_flat(x), mesh) / norm_r0
         status = "converged" if relres < tol else None
     return FGMRESResult(x.reshape(shape), total_iters, relres, status == "converged",
                         resvec)

@@ -2,7 +2,7 @@
 """Time the port's coarse-stencil kernels (K4, K5 and their bf16-block
 instances, csrc/coarse.cu) on one CUDA card, kernel by kernel:
 
-    python3 scripts/probe_torch_coarse.py [--parent DIR] [--out FILE]
+    python3 scripts/probe_torch_coarse.py [--parent DIR] [--out FILE] [--match REGEX]
 
 For every case (the shapes of chip_smoke.py's kernel phase, the batched
 applies of the setup, and a batch sweep for the choice between the two
@@ -30,6 +30,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -68,7 +69,8 @@ def cases():
             for name, terms, mask, parity in main:
                 out.append((f"{name} {L}^4", (L,) * 4, batch, terms, mask, parity, None,
                             ("f32", "bf16")))
-    for dims, loc in (((1, 2, 1, 1), (8, 4, 8, 8)), ((2, 2, 1, 1), (4, 4, 8, 8))):
+    for dims, loc in (((1, 2, 1, 1), (8, 4, 8, 8)), ((2, 2, 1, 1), (4, 4, 8, 8)),
+                      ((1, 1, 2, 2), (8, 8, 4, 4)), ((2, 2, 2, 2), (4, 4, 4, 4))):
         for batch in (1, 28):
             for name, terms in (("full", (0, 9)), ("hop", (1, 9))):
                 out.append((f"K5 {name} slab {loc}", loc, batch, terms, None, None, dims,
@@ -93,6 +95,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="checkout of another commit to time against")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "probe_torch_coarse.json"))
+    ap.add_argument("--match", default="", help="only the cases whose label matches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: the probe times kernels on a card")
@@ -110,6 +113,8 @@ def main():
     from ddalphaamg_tpu_torch.parallel.mesh import SolverMesh, active_axes, shard_field
 
     for label, lat, batch, terms, mask, parity, dims, kinds in cases():
+        if not re.search(args.match, label):
+            continue
         V = math.prod(lat)
         for kind in kinds:
             dtype = torch.complex128 if kind == "f64" else torch.complex64
@@ -127,7 +132,7 @@ def main():
                 new = getattr(lib, f"ddaamg_coarse_{kind}")
                 old = getattr(parent, f"ddaamg_coarse_{kind}") if parent else None
 
-                def args_of(out, v=v, blocks=blocks, mb=mb, par=par):
+                def args_of(out, r, v=v, blocks=blocks, mb=mb, par=par):
                     return (out.data_ptr(), v.data_ptr(), blocks.data_ptr(), d, *terms, *lat, *mb,
                             par, 0, batch)
 
@@ -144,35 +149,41 @@ def main():
                     halos[mu] = (face(fwd, lat, mu, lat[mu] - 1).contiguous(),
                                  face(bwd, lat, mu, 0).contiguous())
                 faces = [f for pair in halos.values() for f in pair]
-                ptrs = []
-                for mu in (0, 1):
+                ptrs = []      # (fwd, bwd) of t, z, y, x
+                for mu in range(4):
                     ptrs += [f.data_ptr() for f in halos[mu]] if mu in halos else [None, None]
                 new = getattr(lib, f"ddaamg_coarse_halo_{kind}")
-                old = getattr(parent, f"ddaamg_coarse_halo_{kind}") if parent else None
+                # a parent whose K5 takes t and z faces only (four pointers)
+                old = (getattr(parent, f"ddaamg_coarse_halo_{kind}")
+                       if parent and set(halos) <= {0, 1} else None)
+                before = old is not None and len(old.argtypes) == 17
 
-                def args_of(out, v=v, blocks=blocks, ptrs=ptrs):
-                    return (out.data_ptr(), v.data_ptr(), blocks.data_ptr(), *ptrs, d, *terms,
+                def args_of(out, r, v=v, blocks=blocks, ptrs=ptrs, before=before):
+                    faces_ = ptrs[:4] if r == "parent" and before else ptrs
+                    return (out.data_ptr(), v.data_ptr(), blocks.data_ptr(), *faces_, d, *terms,
                             *lat, batch)
 
                 plain = lambda: coarse.coarse_apply_halo_plain(blocks, v, lat, halos, terms)
             outs = {r: torch.empty_like(v) for r in ("auto", "batch1", "multi", "parent")}
 
             def launch(r):
-                if r == "parent":
-                    rc = old(*args_of(outs[r]), stream)
+                if r == "parent":     # a parent with two kernels takes a regime too
+                    a = args_of(outs[r], r)
+                    regime = (0,) if len(old.argtypes) == len(a) + 2 else ()
+                    rc = old(*a, *regime, stream)
                 else:
-                    rc = new(*args_of(outs[r]), REGIME[r], stream)
+                    rc = new(*args_of(outs[r], r), REGIME[r], stream)
                 kernels.check(rc, f"{label} {r}")
                 return outs[r]
 
             want = plain()
             rel = {}
-            for r in (["auto", "batch1", "multi"] + (["parent"] if parent else [])):
+            for r in (["auto", "batch1", "multi"] + (["parent"] if old is not None else [])):
                 got = launch(r)
                 torch.cuda.synchronize()
                 rel[r] = float((got - want).abs().max() / want.abs().max())
             ms = {}
-            if parent:
+            if old is not None:
                 p1 = chip_smoke.cuda_ms(lambda: launch("parent"), reps=20)
                 a1 = chip_smoke.cuda_ms(lambda: launch("auto"), reps=20)
                 a2 = chip_smoke.cuda_ms(lambda: launch("auto"), reps=20)
@@ -193,7 +204,7 @@ def main():
             print(f"{label:36s} {kind:4s} batch {batch:3d}  auto {mean['auto']:8.4f}  "
                   f"batch1 {mean['batch1']:8.4f}  multi {mean['multi']:8.4f}  "
                   + (f"parent {mean['parent']:8.4f} ({ms['parent'][0]:.4f}/{ms['parent'][1]:.4f}, "
-                     f"auto {ms['auto'][0]:.4f}/{ms['auto'][1]:.4f})  " if parent else "")
+                     f"auto {ms['auto'][0]:.4f}/{ms['auto'][1]:.4f})  " if old is not None else "")
                   + f"bound {bound:7.4f} ({100 * bound / mean['auto']:5.1f} %)  "
                   f"rel {max(rel.values()):.1e}", flush=True)
             tol = chip_smoke.TOL[fdt]

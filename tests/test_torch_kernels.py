@@ -183,7 +183,7 @@ def test_coarse_halo_kernel_matches_plain(cuda, dtype):
     def faces(mu):
         return tuple(_cplx((B, d, V // lat[mu]), gen, dtype, cuda) for _ in range(2))
 
-    for axes in [(0,), (1,), (0, 1)]:
+    for axes in [(0,), (1,), (0, 1), (2,), (3,), (2, 3), (0, 1, 2, 3)]:
         halos = {mu: faces(mu) for mu in axes}
         for terms in [(0, 9), (1, 9)]:
             got = cuda_coarse.coarse_apply_halo(Pk, v, lat, halos, terms)
@@ -205,7 +205,7 @@ def test_coarse_bf16_kernels_match_plain(cuda):
         want = coarse.coarse_apply_plain(Pk, v, lat, terms, mask, parity)
         assert _rel(got, want) < tol, (terms, mask, parity)
     halos = {mu: tuple(_cplx((B, d, V // lat[mu]), gen, torch.complex64, cuda)
-                       for _ in range(2)) for mu in (0, 1)}
+                       for _ in range(2)) for mu in range(4)}
     got = cuda_coarse.coarse_apply_halo(Pk, v, lat, halos)
     assert _rel(got, coarse.coarse_apply_halo_plain(Pk, v, lat, halos)) < tol
     with pytest.raises(TypeError):
@@ -393,7 +393,7 @@ def _faces(lat, axes, batch, d, gen, dtype, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", SHAPE_BATCHES)
-@pytest.mark.parametrize("axes", [(0,), (1,), (0, 1)])
+@pytest.mark.parametrize("axes", [(0,), (1,), (0, 1), (2,), (3,), (2, 3), (0, 1, 2, 3)])
 @pytest.mark.parametrize("lat", [(4, 2, 2, 4), (3, 3, 3, 3)])
 @pytest.mark.parametrize("kind", BLOCK_KINDS)
 def test_coarse_halo_kernels_every_batch(cuda, kind, lat, axes, batch):

@@ -3,7 +3,8 @@ the JAX package's sharded path and the port's own single-rank path, on the
 CPU: ranks are spawned processes on the gloo transport (parallel/launch.py),
 each running tests/torch_parallel_ranks.py, which imports no JAX.
 
-  (a) mesh helpers and slab slicing equal the JAX package's;
+  (a) mesh helpers and slab slicing equal the JAX package's (a y split
+      too: tests/test_torch_grid4d.py covers the y/x grids);
   (b) the plain version of K5 on slabs plus faces equals the JAX package's
       coarse_sharded full / hop / block on a (2, 2, 1, 1) mesh, Pallas in
       interpret mode (float32, 1e-5 relative);
@@ -191,8 +192,16 @@ def test_mesh_and_slabs_match_jax(dims):
         mesh = pmesh.SolverMesh(dims, devices.index(shard.device))
         np.testing.assert_array_equal(convert.interpolation(P, mesh=mesh).numpy(),
                                       np.asarray(shard.data).reshape(-1, 2, 3, 5))
-    with pytest.raises(ValueError):
-        pmesh.SolverMesh((1, 1, 2, 1))
+    # a y split builds and slices as the JAX package's logical layout shards
+    ym = _jmesh((1, 1, 2, 1))
+    assert pmesh.active_axes(pmesh.SolverMesh((1, 1, 2, 1)), lat) == (2,)
+    w = random_spinor((*lat, 12), seed=4)
+    jw = jparallel.shard_field(ym, jnp.asarray(w), lat)
+    ydev = list(np.asarray(ym.devices).reshape(-1))
+    for shard in jw.addressable_shards:
+        mine = pmesh.shard_field(pmesh.SolverMesh((1, 1, 2, 1), ydev.index(shard.device)),
+                                 torch.as_tensor(w.reshape(-1, 12).T), lat)
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(shard.data).reshape(-1, 12).T)
 
 
 # ---------------------------------------------------------------------------

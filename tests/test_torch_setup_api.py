@@ -20,13 +20,15 @@ fields, two levels, 8 test vectors:
       them: the hopping time links zeroed, the operator equal to the JAX
       package's, no coupling across the boundary, a solve to 1e-8;
   (g) apply_preconditioner lowers the residual for every method;
-  (h) the methods without multigrid raise NotImplementedError on a mesh.
+  (h) the methods without multigrid on a spawned (1, 1, 1, 2) gloo grid
+      against one rank.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_parallel_ranks as ranks
 from torch_parity import random_spinor, rel_err, rough_field
 
 from ddalphaamg_tpu import api as japi
@@ -37,7 +39,7 @@ from ddalphaamg_tpu_torch import api, config, convert, io
 from ddalphaamg_tpu_torch.mg.hierarchy import Multigrid
 from ddalphaamg_tpu_torch.operators import fast
 from ddalphaamg_tpu_torch.operators.stencil import shift_stencil
-from ddalphaamg_tpu_torch.parallel.mesh import SolverMesh
+from ddalphaamg_tpu_torch.parallel import launch
 
 torch.set_num_threads(1)
 
@@ -305,13 +307,30 @@ def test_apply_preconditioner_lowers_the_residual(field, method, interp):
     assert np.linalg.norm(r) < 0.5 * np.linalg.norm(b)
 
 
-@pytest.mark.parametrize("method", [-1, 0, 1, 4, 5])
-def test_methods_without_multigrid_refuse_a_mesh(field, method):
-    s = api.Solver(config.parse_ini(_ini(method=method, interp=0)), device="cpu",
-                   mesh=SolverMesh((1, 2, 1, 1), 0))
-    s.set_conf(field, links_have_bc=True)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        s.setup()
-    if method in (-1, 0):       # these solve without a setup: refused there too
-        with pytest.raises(NotImplementedError, match="A.12"):
-            s.solve()
+GRID_METHODS = (-1, 0, 1, 4, 5)
+
+
+@pytest.fixture(scope="module")
+def grid_solves(field):
+    """Each method without multigrid solved on a spawned (1, 1, 1, 2) gloo
+    grid (tests/torch_parallel_ranks.py) and on one rank."""
+    cases = {m: ("solve", dict(ini=_ini(method=m, interp=0), U=field)) for m in GRID_METHODS}
+    res = launch.run_ranks(ranks.run, (1, 1, 1, 2), "gloo", ["cpu"] * 2, cases)
+    return res, {m: ranks.solve(None, _ini(method=m, interp=0), field) for m in GRID_METHODS}
+
+
+@pytest.mark.parametrize("method", GRID_METHODS)
+def test_methods_without_multigrid_refuse_a_mesh(grid_solves, method):
+    """The method runs on a grid that splits x as on one rank: every rank
+    returns the same x, which converges to the tolerance in the single
+    rank's iterations (within 2 % or 1) and agrees with its x."""
+    res, single = grid_solves
+    x1, it1, _, exact1 = single[method]
+    x0, it0, relres0, _ = res[0][method]
+    for r in res:
+        x, it, relres, exact = r[method]
+        assert it == it0 and relres == relres0
+        np.testing.assert_array_equal(x, x0)
+        assert relres < 1e-10 and exact < 1e-10 and exact1 < 1e-10
+        assert abs(it - it1) <= max(1, 0.02 * it1), (it, it1)
+        assert rel_err(x, x1) < 1e-8
