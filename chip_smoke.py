@@ -54,7 +54,12 @@ Phases, one result line each (or a few), in order:
               input; widened complex64 blocks for the bf16 rows, zeroed at
               the other parity's sites for self_inv odd), and torch.matmul
               on the widened complex64 listed blocks for K6, all in full
-              f32 (utils.pin_full_precision); K6 also over 12 right-hand
+              f32 (utils.pin_full_precision); the shapes of phase rough32
+              too: K1 (f32 and f64), K2 on the block links' odd sites and
+              K3 at 32^4 batch 1 on the rough32 field, K4 and K4-bf16 full
+              and block-masked at 16^4 with d = 56 at batch 1 and 28 (and K4
+              masked at batch 56, the Galerkin build of the 8^4 level); K6
+              also over 12 right-hand
               sides at every shape (the batched cycles of phase "multi":
               the tensor-core kernel, one read of the matrix, whose bound
               counts the exact split's 3 x 8 nc m^2 R operations at the
@@ -149,10 +154,35 @@ Phases, one result line each (or a few), in order:
               time in one more, profiled solve_multi
   8. sharded-direct  phase 5 with the three options: K5-bf16 must run, and
               the iterations are within 1 of phase 7
+  9. defaults rough16.ini with no option keys, so the CUDA defaults decide
+              (api.accelerator_options, the JAX package's rule for an
+              accelerator that is not a TPU): the options chosen must be bf16
+              blocks on, the coarsest Schur inverse on (n = 14,336 <=
+              16,384), direct block solves off; setup, a solve and a warm
+              solve (beside phase 4's and phase 7's), the inner GCR's cap and
+              the last inner clip; exact relres < 1e-10 in <= 12 and <= phase
+              4 + 2 outer iterations
+ 10. rough32  the configuration "rough32" (rough32_params): a rough SU(3)
+              field at 32^4 from tools.rough_su3(seed 0) made on the card
+              (the numpy draws, the projections on the card; phase 3 made
+              it), anti-periodic in time, rough16's parameters with the
+              lattices doubled (32^4 -> 16^4 -> 8^4, 28 / 28 test vectors,
+              setup 4 / 3), no option keys: field seconds and plaquette,
+              set_conf, setup and slim_for_solve with the device memory after
+              each, the lanes of every setup chunk, a cold and a warm solve,
+              iterations, exact relres < 1e-10 (complex128), the options
+              chosen (bf16 on, coarsest direct off: n = 229,376), cap and
+              clip, and the launches by kernel; then every other shape of
+              K1-K4 that set_conf, the setup (its lane chunks follow the
+              card's free memory) and the cold solve launched at 32^4 and
+              16^4 (launch_shapes), held against its plain version as in
+              phase 3 (check_rough32_kernels), and the rows of phase 3 that
+              rough32 did not launch
 
 The second-to-last lines are a JSON summary of the kernels (launches of
 K1-K4 from phase 4, K5 from phase 5 (phase 5b's under "launches_by_path"), K4-bf16 and K6 from phase 7, K5-bf16
-from phase 8, and under "launches_by_path" those of every path run; the
+from phase 8, and under "launches_by_path" those of every path run, phases
+9 and 10 included; the
 times of the first case and, under "cases", of every case of phase 3; K6's
 device time in the three profiled runs under "device_ms_by_path") and
 the card's nvidia-smi line; the last line is
@@ -162,9 +192,12 @@ line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,7 +221,18 @@ PEAK_BF16_TC = 989e12
 # 6 x 6 complex blocks) 576
 DSLASH_FLOPS = {"K1": 1320 + 576, "K2": 1320, "K3": 576}
 OPTIONS = ("coarse_block_bf16", "coarsest_direct", "smoother_direct")
+ROUGH32 = (32, 32, 32, 32)
+# K1 (csrc/dslash.cu's dslash kernels with the clover), K2 (without), K3,
+# K6 (csrc/dense.cu) and the coarse kernels K4 / K4-bf16 (csrc/coarse.cu) by
+# the names of their instances, in the profiler's kernel events
+KERNEL_EVENTS = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true"),
+                 "K2": re.compile(r"dslash_(mrhs_)?kernel<(float|double), false"),
+                 "K3": re.compile(r"clover_kernel<"),
+                 "K4": re.compile(r"coarse_(b1|mrhs)_kernel"),
+                 "K6": re.compile(r"dense_bf16")}
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4"),
+                "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
+                "rough32": ("K1", "K2", "K3", "K4", "K4-bf16"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5"),
                 "grid4d": ("K1", "K2", "K3", "K4", "K5"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
@@ -206,15 +250,42 @@ def fail(msg):
 def rough16_params(options=False):
     """rough16.ini with its configuration file taken from this checkout (the
     ini names it by an absolute path), with the three accelerator options
-    on if asked."""
+    set on or off (None: left unset, so that the CUDA defaults decide)."""
     from ddalphaamg_tpu_torch import config
 
     params = config.parse_ini(INI)
     params.configuration = os.path.join(HERE, "bench_assets",
                                         os.path.basename(params.configuration))
-    for key in OPTIONS:
-        setattr(params, key, bool(options))
+    if options is not None:
+        for key in OPTIONS:
+            setattr(params, key, bool(options))
     return params
+
+
+def rough32_params():
+    """The configuration "rough32": rough16.ini's parameters with the
+    lattices doubled (32^4 -> 16^4 -> 8^4) and no option keys, so that the
+    CUDA defaults decide; the field comes from rough32_field."""
+    from ddalphaamg_tpu_torch import config
+
+    params = config.parse_ini(INI)
+    params.configuration = None
+    params.depth[0].global_lattice = params.depth[0].local_lattice = ROUGH32
+    params.depth[1].global_lattice = tuple(e // 2 for e in ROUGH32)
+    params.depth[2].global_lattice = tuple(e // 4 for e in ROUGH32)
+    return params.validate()
+
+
+def rough32_field():
+    """rough32's links (bench.py's bench_lat32 field): tools.rough_su3 at
+    32^4, seed 0, made on the card, anti-periodic sign on the last time
+    slice; returns (U, seconds)."""
+    from ddalphaamg_tpu_torch import tools
+
+    t0 = time.perf_counter()
+    U = tools.rough_su3(ROUGH32, seed=0, device="cuda")
+    U[0, -1] *= -1.0
+    return U, time.perf_counter() - t0
 
 
 def phase(name, t0, text):
@@ -439,7 +510,197 @@ def clover_library(cdiag, coff, phi, lat, parity=None, parity_offset=0):
     return lambda: torch.einsum("cijx,bcjx->bcix", dense, ph)
 
 
-def check_kernels(results):
+ROUGH16 = tuple(e // 2 for e in ROUGH32)      # rough32's depth-1 lattice
+BLOCK = (2, 2, 2, 2)
+FULL, MASKED = ((0, 9), None, None, 0), ((0, 9), BLOCK, None, 0)
+# the launch shapes phase 3 holds for phase rough32, as launch_shapes notes
+# them: (kernel, lattice, d, batch, dtype, variant), variant (parity,
+# parity_offset[, compact]) for K2 / K3, (terms, mask, parity,
+# parity_offset) for K4
+ROUGH32_SHAPES = (
+    [("K1", ROUGH32, 12, 1, dt, None) for dt in (torch.complex64, torch.complex128)]
+    + [("K2", ROUGH32, 12, 1, torch.complex64, (1, 0)),
+       ("K3", ROUGH32, 12, 1, torch.complex64, (None, 0, False))]
+    + [(k, ROUGH16, 56, B, torch.complex64, v)
+       for k in ("K4", "K4-bf16") for B in BATCHES for v in (FULL, MASKED)]
+    + [("K4", ROUGH16, 56, GALERKIN_BATCH, torch.complex64, MASKED)])
+# above this many bytes of inputs stacked for it, a row runs no library call
+# (the 12 x 12 hop matrices and nine neighbour fields of K1 / K2 at 32^4)
+LIBRARY_MAX_BYTES = 24 * 2**30
+
+
+@contextlib.contextmanager
+def launch_shapes(shapes):
+    """Adds to the set `shapes` the shape of every K1-K4 launch on
+    rough32's lattices (32^4 and 16^4) while the context runs, in the form
+    of ROUGH32_SHAPES."""
+    from ddalphaamg_tpu_torch.operators import cuda_coarse, cuda_dslash
+
+    def dslash(key, field):
+        def note(a):
+            phi = a[field]
+            batch = phi.numel() // (12 * phi.shape[-1])
+            variant = {"K1": None, "K2": (a.get("parity"), a.get("parity_offset")),
+                       "K3": (a.get("parity"), a.get("parity_offset"), a.get("compact"))}[key]
+            return key, 12, batch, phi.dtype, variant
+        return note
+
+    def coarse(a):
+        blocks, v = a["blocks"], a["v"]
+        d = blocks.shape[1]
+        mask = None if a["mask_block"] is None else tuple(a["mask_block"])
+        return ("K4-bf16" if cuda_coarse._instance(blocks, v) == "bf16" else "K4", d,
+                v.numel() // (d * v.shape[-1]), v.dtype,
+                (tuple(a["terms"]), mask, a["parity"], a["parity_offset"]))
+
+    wrapped = {(cuda_dslash, "d_plus_clover"): dslash("K1", "phi"),
+               (cuda_dslash, "hopping"): dslash("K2", "phi"),
+               (cuda_dslash, "clover"): dslash("K3", "phi"),
+               (cuda_coarse, "coarse_apply"): coarse}
+    saved = {key: getattr(*key) for key in wrapped}
+
+    def recorder(fn, note):
+        sig = inspect.signature(fn)
+
+        def recording(*args, **kw):
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            lat = tuple(a.arguments["lattice"])
+            if lat in (ROUGH32, ROUGH16):
+                key, d, batch, dtype, variant = note(a.arguments)
+                shapes.add((key, lat, d, batch, dtype, variant))
+            return fn(*args, **kw)
+        return recording
+
+    for (mod, name), note in wrapped.items():
+        setattr(mod, name, recorder(saved[(mod, name)], note))
+    try:
+        yield shapes
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def by_lanes(fn, x, lane_bytes=2**30):
+    """fn over the lanes of x [B, ...] in groups of at most lane_bytes of
+    x (one group for all but the largest batches), concatenated: a plain
+    version's temporaries at 32^4 and batch 50 would not fit the card."""
+    per = max(1, lane_bytes // (x[0].numel() * x.element_size()))
+    if x.shape[0] <= per:
+        return lambda: fn(x)
+    return lambda: torch.cat([fn(x[i:i + per]) for i in range(0, x.shape[0], per)])
+
+
+def shape_label(shape):
+    key, lat, d, batch, dtype, variant = shape
+    tag = {torch.complex64: "f32", torch.complex128: "f64"}[dtype]
+    if key in ("K4", "K4-bf16"):
+        terms, mask, parity, off = variant
+        what = (f"{'block masked' if mask else 'full'} terms {terms[0]}-{terms[1] - 1}"
+                + ("" if parity is None else f" parity {parity} offset {off}"))
+        return f"{key} {what} {lat[0]}^4 d={d} batch {batch}"
+    if key == "K1":
+        what = "full"
+    elif key == "K2":
+        what = ("hop (Galerkin face links t, all sites)" if variant[0] is None else
+                f"hop (block links, {'odd' if variant[0] else 'even'} sites)")
+    else:
+        parity, off, compact = variant
+        what = ("clover" if not compact else f"clover inverse compact, offset {off}") + (
+            "" if parity is None else f" {'odd' if parity else 'even'} sites")
+    return f"{key} {what} {lat[0]}^4 {tag} batch {batch}"
+
+
+def check_rough32_kernels(results, gen, U32, m0, csw, shapes):
+    """Each launch shape of phase rough32 in `shapes` (ROUGH32_SHAPES, or
+    those launch_shapes noted) against its plain version: K1-K3 on the
+    rough32 field's stencil at 32^4 (K1 on the full links, K2 with a parity
+    on the block links and without one on the Galerkin build's face links,
+    K3 with the clover or the odd-site inverse's compact storage), K4 and
+    K4-bf16 on random blocks at 16^4 (bf16: the same blocks rounded).  The
+    plain version runs over groups of lanes (by_lanes); the library call
+    where its stacked inputs fit (LIBRARY_MAX_BYTES)."""
+    from ddalphaamg_tpu_torch.geometry import Geometry
+    from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
+    from ddalphaamg_tpu_torch.operators.stencil import WilsonStencilSoA, herm_inv
+    from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
+
+    dev = torch.device("cuda")
+    order = {"K1": 0, "K2": 1, "K3": 2, "K4": 3, "K4-bf16": 4}
+    shapes = sorted(shapes, key=lambda t: (order[t[0]], t[1], str(t[4]), t[3], str(t[5])))
+    wilson = [t for t in shapes if t[0] in ("K1", "K2", "K3")]
+    if wilson:
+        op = WilsonOperator.from_gauge(torch.as_tensor(U32, device=dev), m0, csw)
+        inv = cuda_dslash.pack_clover(fast.clover_to_soa(herm_inv(op.clover)))
+    for dtype in (torch.complex64, torch.complex128):
+        rows = [t for t in wilson if t[4] == dtype]
+        if not rows:
+            continue
+        s = WilsonStencilSoA.build(op, Geometry(lattice=ROUGH32, block=BLOCK), dtype=dtype)
+        lat, V = ROUGH32, s.geom.num_sites
+        for shape in rows:
+            key, _, _, B, _, variant = shape
+            phi = torch.randn((B, 12, V), generator=gen, dtype=dtype, device=dev)
+            big = 9 * nbytes(phi) > LIBRARY_MAX_BYTES
+            if key == "K1":
+                kern = lambda: cuda_dslash.d_plus_clover(s.links, s.cdiag, s.coff, phi, lat)
+                plain = by_lanes(lambda x: fast.d_plus_clover_soa(
+                    s.links, s.cdiag, s.coff, x, lat), phi)
+                work = dslash_work("K1", phi, s.links, (s.cdiag, s.coff))
+                lib = None if big else dslash_library(s.links, phi, lat, (s.cdiag, s.coff))
+            elif key == "K2":
+                parity, off = variant
+                links = s.links_intra if parity is not None else galerkin_face_links(s, 0)
+                kern = lambda: cuda_dslash.hopping(links, phi, lat, parity, off)
+                plain = by_lanes(lambda x: fast.dslash_hopping_soa(links, x, lat, parity, off),
+                                 phi)
+                work = dslash_work("K2", phi, links, parity=parity)
+                lib = None if big else dslash_library(links, phi, lat, parity=parity,
+                                                      parity_offset=off)
+            else:
+                parity, off, compact = variant
+                full = ((s.cdiag, s.coff) if not compact else
+                        tuple(t.to(u.dtype) for t, u in zip(inv, (s.cdiag, s.coff))))
+                cd, co = (full if not compact else
+                          tuple(fast.compact_parity(t, lat, parity, off) for t in full))
+                kern = lambda: cuda_dslash.clover(cd, co, phi, lat, parity, off, compact)
+                plain = by_lanes(lambda x: fast.clover_apply_soa(
+                    cd, co, x, lat, parity, off, compact), phi)
+                work = dslash_work("K3", phi, clover=full, parity=parity)
+                lib = clover_library(*full, phi, lat, parity, off)
+            label = shape_label(shape) + (" (no library call: stacked inputs above "
+                                          f"{LIBRARY_MAX_BYTES >> 30} GiB)" if lib is None else "")
+            compare(results, key, label, kern, plain, dtype, work, lib)
+            del phi, kern, plain, lib
+            torch.cuda.empty_cache()
+        del s
+        torch.cuda.empty_cache()
+    if wilson:
+        del op, inv
+    coarse_rows = [t for t in shapes if t[0] in ("K4", "K4-bf16")]
+    if {(t[1], t[2]) for t in coarse_rows} - {(ROUGH16, 56)}:
+        fail(f"rough32 launched a coarse kernel off 16^4 d = 56: {coarse_rows}")
+    clat, d, V = ROUGH16, 56, math.prod(ROUGH16)
+    Pk = torch.randn((9, d, d, V), generator=gen, dtype=torch.complex64, device=dev)
+    for key in ("K4", "K4-bf16"):
+        if key == "K4-bf16":
+            Pk = coarse.compress(Pk)
+        for shape in (t for t in coarse_rows if t[0] == key):
+            _, _, _, B, dtype, (terms, mask, parity, off) = shape
+            v = torch.randn((B, d, V), generator=gen, dtype=dtype, device=dev)
+            compare(results, key, shape_label(shape),
+                    lambda: cuda_coarse.coarse_apply(Pk, v, clat, terms, mask, parity, off),
+                    by_lanes(lambda x: coarse.coarse_apply_plain(Pk, x, clat, terms, mask,
+                                                                 parity, off), v),
+                    dtype, coarse_work(Pk, v, clat, terms, mask, parity),
+                    stacked_einsum(Pk, v, clat, terms, mask, parity=parity))
+            del v
+            torch.cuda.empty_cache()
+    del Pk
+    torch.cuda.empty_cache()
+
+
+def check_kernels(results, U32):
     import numpy as np
 
     from ddalphaamg_tpu_torch import io, utils
@@ -574,6 +835,7 @@ def check_kernels(results):
         del Pk, Pk16
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
     check_dense_kernel(results, gen, d, lat)
+    check_rough32_kernels(results, gen, U32, params.m0, params.csw, ROUGH32_SHAPES)
 
 
 def check_halo_kernels(results, gen, glat, d):
@@ -676,24 +938,18 @@ def check_dense_kernel(results, gen, d, lat):
 
 
 def k6_device_ms(run):
-    """K6's device time (ms) and kernel count while run() executes, from
-    the profiler's CUDA kernel events; the count must equal the wrapper's
-    launches in that run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """K6's device time (ms) and kernel count while run() executes
+    (device_time_by_kernel); the count must equal the wrapper's launches
+    in that run."""
     from ddalphaamg_tpu_torch import kernels
 
     before = kernels.counts()["K6"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    spans = [e.time_range for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "dense_bf16" in e.name]
+    _, _, table = device_time_by_kernel(run)
+    events, ms = table.get("K6", (0, 0.0))
     launches = kernels.counts()["K6"] - before
-    if len(spans) != launches:
-        fail(f"the profiler saw {len(spans)} K6 kernels, the wrapper launched {launches}")
-    return sum(t.end - t.start for t in spans) / 1e3, launches
+    if events != launches:
+        fail(f"the profiler saw {events} K6 kernels, the wrapper launched {launches}")
+    return ms, launches
 
 
 def exact_relres(solver, x, rhs):
@@ -879,7 +1135,190 @@ def direct_path(single_iterations, single_warm, k6_ms):
     check_counts(name, counts)
     k6_ms["direct, warm solve"] = k6_profiled(name, t0, "warm solve",
                                               lambda: solver.solve(rhs))
-    return counts, warm, info.iterations, solver
+    return counts, warm, info.iterations, info2.solve_time, solver
+
+
+def defaults_path(single_iterations, single_warm, direct_warm):
+    """Phase "defaults": rough16 with no option keys, so that the CUDA
+    defaults decide; returns the launch counts of setup and solves."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import api, config, kernels
+
+    name = "defaults"
+    params = rough16_params(options=None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    solver = api.Solver(params, device="cuda")
+    solver.read_conf()
+    status = solver.setup()
+    rhs = config.make_rhs("ones", solver.lattice)
+    x, info = solver.solve(rhs)
+    x2, info2 = solver.solve(rhs)
+    counts = kernels.counts()
+    exact, exact2 = exact_relres(solver, x, rhs), exact_relres(solver, x2, rhs)
+    chosen = {k: on for k, (on, _) in info.options.items()}
+    phase(name, t0, "options: " + "; ".join(f"{k} {'on' if on else 'off'} ({why})"
+                                            for k, (on, why) in info.options.items()))
+    phase(name, t0, f"setup {status.setup_time:.3f} s; first solve {info.solve_time:.3f} s "
+          f"(with the inverse builds), warm solve {info2.solve_time:.3f} s (phase 4, options "
+          f"off: {single_warm:.3f} s; phase 7, options on: {direct_warm:.3f} s); "
+          f"{info.iterations} / {info2.iterations} outer iterations (phase 4: "
+          f"{single_iterations}), exact relres {exact:.6e} / {exact2:.6e}; inner restart cap "
+          f"{info.inner_restart_cap}, inner tol clip {info.inner_tol_clip:.3e} / "
+          f"{info2.inner_tol_clip:.3e}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase(name, t0, "launches (setup and both solves) " + as_text(counts))
+    want = {"coarse_block_bf16": True, "coarsest_direct": True, "smoother_direct": False}
+    if chosen != want or api.coarsest_n(params) != 14336 or not api.coarsest_schur_ok(params):
+        fail(f"{name}: the defaults chose {chosen} (coarsest n {api.coarsest_n(params)}), "
+             f"not {want} with the Schur form at n = 14,336")
+    if not isinstance(solver.mg._levels()[-1].dense_inv, tuple):
+        fail(f"{name}: the coarsest inverse is not the Schur complement's")
+    if not all(np.isfinite(a).all() and a.shape == rhs.shape for a in (x, x2)):
+        fail(f"{name}: a solution is not a finite field of the lattice's shape")
+    limit = min(12, single_iterations + 2)
+    for i, e in ((info, exact), (info2, exact2)):
+        if not (i.converged and e < 1e-10 and i.iterations <= limit):
+            fail(f"{name}: a solve did not meet relres < 1e-10 in <= {limit} iterations "
+                 f"(iterations {i.iterations}, exact relres {e:.3e})")
+    check_counts(name, counts)
+    return counts
+
+
+def device_time_by_kernel(run, lattice_of=None):
+    """Device time of the card's work while run() executes, from the
+    profiler's CUDA events: (wall ms, busy ms, {kind: [events, ms]}), the
+    kinds KERNEL_EVENTS' and "other (torch)"; given lattice_of (the
+    lattices of the coarse_apply launches in launch order, filled while
+    run() executes), the coarse kernels by the lattice of each launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA), key=lambda e: e[1])
+    kind = {}
+    if lattice_of is not None:
+        coarse = [e for e in events if KERNEL_EVENTS["K4"].search(e[0])]
+        if len(coarse) != len(lattice_of):
+            fail(f"the profiler saw {len(coarse)} coarse kernels, the wrapper launched "
+                 f"{len(lattice_of)}")
+        kind = {id(e): f"K4 at {lat[0]}^4" for e, lat in zip(coarse, lattice_of)}
+    table = {}
+    for e in events:
+        k = kind.get(id(e)) or next((key for key, pat in KERNEL_EVENTS.items()
+                                     if pat.search(e[0])), "other (torch)")
+        row = table.setdefault(k, [0, 0.0])
+        row[0] += 1
+        row[1] += (e[2] - e[1]) / 1e3
+    busy, end = 0.0, -1.0
+    for _, a, b in events:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e3, dict(sorted(table.items(), key=lambda kv: -kv[1][1]))
+
+
+def rough32_path(U, field_s):
+    """Phase "rough32": the configuration rough32 at full width with the
+    CUDA defaults; returns the launch counts of set_conf, setup and both
+    solves, and the profile of a third, profiled warm solve."""
+    from collections import Counter
+
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import api, config, kernels
+    from ddalphaamg_tpu_torch.mg import hierarchy
+    from ddalphaamg_tpu_torch.operators import cuda_coarse
+
+    name = "rough32"
+    GiB = 2**30
+    params = rough32_params()
+    chunks = Counter()
+    lane_chunk = hierarchy.lane_chunk
+
+    def recording(n, lane_bytes, device, mesh=None):
+        c = lane_chunk(n, lane_bytes, device, mesh)
+        chunks[(n, lane_bytes, c)] += 1
+        return c
+
+    def mem(what):
+        phase(name, t0, f"{what}: device memory {torch.cuda.memory_allocated() / GiB:.2f} GiB "
+              f"allocated, peak {torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    shapes = set()      # the kernels' shapes in set_conf, the setup and the cold solve
+    hierarchy.lane_chunk = recording
+    try:
+        with launch_shapes(shapes):
+            solver = api.Solver(params, device="cuda")
+            plaq = solver.set_conf(U, links_have_bc=True)
+            phase(name, t0, f"field {ROUGH32} made in {field_s:.2f} s, plaquette {plaq:.13f}")
+            mem("after set_conf")
+            status = solver.setup()
+    finally:
+        hierarchy.lane_chunk = lane_chunk
+    phase(name, t0, f"setup {status.setup_time:.3f} s")
+    mem("after the setup")
+    for (n, lane, c), calls in sorted(chunks.items(), key=lambda kv: -kv[0][1]):
+        phase(name, t0, f"setup chunk: {n} lanes of {lane / GiB:.3f} GiB -> {c} a chunk "
+              f"({calls} calls)")
+    solver.slim_for_solve()
+    mem("after slim_for_solve")
+    torch.cuda.reset_peak_memory_stats()
+    rhs = config.make_rhs("ones", solver.lattice)
+    with launch_shapes(shapes):
+        x, info = solver.solve(rhs)
+    x2, info2 = solver.solve(rhs)
+    counts = kernels.counts()
+    exact, exact2 = exact_relres(solver, x, rhs), exact_relres(solver, x2, rhs)
+    chosen = {k: on for k, (on, _) in info.options.items()}
+    phase(name, t0, "options: " + "; ".join(f"{k} {'on' if on else 'off'} ({why})"
+                                            for k, (on, why) in info.options.items()))
+    phase(name, t0, f"cold solve {info.solve_time:.3f} s, warm solve {info2.solve_time:.3f} s; "
+          f"{info.iterations} / {info2.iterations} outer iterations, exact relres "
+          f"{exact:.6e} / {exact2:.6e} (solver {info2.relres:.6e}); coarse average "
+          f"{info2.coarse_average:.2f}; inner restart cap {info2.inner_restart_cap}, inner tol "
+          f"clip {info.inner_tol_clip:.3e} / {info2.inner_tol_clip:.3e}; peak device memory "
+          f"in the solves {torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
+    phase(name, t0, "launches (set_conf, setup, both solves) " + as_text(counts))
+    want = {"coarse_block_bf16": True, "coarsest_direct": False, "smoother_direct": False}
+    if chosen != want or api.coarsest_n(params) != 229376:
+        fail(f"{name}: the defaults chose {chosen} (coarsest n {api.coarsest_n(params)}), "
+             f"not {want} at n = 229,376")
+    if not all(np.isfinite(a).all() and a.shape == rhs.shape for a in (x, x2)):
+        fail(f"{name}: a solution is not a finite field of the lattice's shape")
+    for i, e in ((info, exact), (info2, exact2)):
+        if not (i.converged and e < 1e-10):
+            fail(f"{name}: a solve did not reach relres < 1e-10 within the ini's restarts "
+                 f"(iterations {i.iterations}, exact relres {e:.3e})")
+    check_counts(name, counts)
+    # where a warm solve's device time goes, the coarse kernels by level
+    lattices = []
+    apply = cuda_coarse.coarse_apply
+
+    def by_lattice(blocks, v, lattice, *a, **k):
+        lattices.append(tuple(lattice))
+        return apply(blocks, v, lattice, *a, **k)
+
+    cuda_coarse.coarse_apply = by_lattice
+    try:
+        wall, busy, table = device_time_by_kernel(lambda: solver.solve(rhs), lattices)
+    finally:
+        cuda_coarse.coarse_apply = apply
+    phase(name, t0, f"a profiled warm solve: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f} %); " + "; ".join(
+              f"{k} {n} events {ms:.1f} ms" for k, (n, ms) in table.items()))
+    return counts, dict(wall_ms=wall, busy_ms=busy, by_kind=table), shapes
 
 
 def method_params(method, interpolation=2, **options):
@@ -1363,8 +1802,10 @@ def main():
     phase("build", t0, f"nvcc {kernels.build_seconds:.2f} s")
 
     t0 = time.perf_counter()
+    U32, field_s = rough32_field()
+    phase("kernels", t0, f"rough32's field {ROUGH32} made on the card in {field_s:.2f} s")
     results = {}
-    check_kernels(results)
+    check_kernels(results, U32)
     phase("kernels", t0, "all kernels agree with their plain versions")
 
     paths = {}        # the launch counts of every path run, by name
@@ -1389,7 +1830,8 @@ def main():
     else:
         print(f"[nccl] not run: {n} card (the nccl transport needs a card per rank)",
               flush=True)
-    direct, direct_warm, direct_iterations, solver = direct_path(iterations, warm, k6_ms)
+    direct, direct_warm, direct_iterations, direct_warm_s, solver = direct_path(iterations,
+                                                                              warm, k6_ms)
     paths["direct"], paths["direct, warm solve"] = direct, direct_warm
     print(f"[methods] K6 launches in a warm solve with the options on: 16 colours "
           f"{paths['method 3 + multigrid, options on, warm solve']['K6']}, red-black "
@@ -1402,6 +1844,20 @@ def main():
                                   direct_iterations, options=True)
     paths["sharded-direct (rank 0)"] = sharded_direct
     counts["K5-bf16"] = sharded_direct["K5-bf16"]
+    paths["defaults"] = defaults_path(iterations, warm, direct_warm_s)
+    torch.cuda.empty_cache()
+    paths["rough32"], profile32, shapes = rough32_path(U32, field_s)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unlaunched = [shape_label(t) for t in ROUGH32_SHAPES if t not in shapes]
+    phase("rough32", t0, f"{len(shapes)} kernel shapes launched; phase 3's rows rough32 did not "
+          "launch: " + ("; ".join(unlaunched) or "none"))
+    params32 = rough32_params()
+    check_rough32_kernels(results, torch.Generator(device="cuda").manual_seed(4321), U32,
+                          params32.m0, params32.csw, shapes - set(ROUGH32_SHAPES))
+    phase("rough32", t0, "the kernels agree with their plain versions at every other shape "
+          "rough32 launched")
+    del U32
     results["K6"]["device_ms_by_path"] = k6_ms
     print("[K6] device time by path: " + ", ".join(
         f"{p} {v['ms']:.4f} ms ({v['launches']} launches)" for p, v in k6_ms.items()),
@@ -1411,6 +1867,7 @@ def main():
                     launches_by_path={p: c[key] for p, c in paths.items() if c[key]},
                     **results[key])
                for key, k in kernels.KERNELS.items()]
+    print(f"[rough32] profiled warm solve: {json.dumps(profile32)}", flush=True)
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

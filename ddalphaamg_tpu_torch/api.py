@@ -29,14 +29,25 @@ of solvers/ (one right-hand side at a time): CGN on D and D^dagger in
 complex128, FGMRES in complex128, or with mixed precision 2 FGMRES with a
 complex128 outer and complex64 inner loop, as the JAX package's CPU path.
 
-The JAX package's accelerator options are ported and off unless the ini
-turns them on (`coarse block bf16: 1`, `coarsest direct: 1`,
-`smoother direct: 1`; mg/hierarchy.py describes them): bf16 coarse blocks
-(complex64 inner solve only), a dense inverse on the coarsest level and
-direct Schwarz block solves on the coarse levels.  An option that is on
-builds its inverse at any size.  The JAX package turns all three on by
-default on its accelerator (its api.py:228-238); the CUDA defaults wait
-for a GPU benchmark.
+The JAX package's accelerator options (`coarse block bf16`, `coarsest
+direct`, `smoother direct`; mg/hierarchy.py describes them): bf16 coarse
+blocks (complex64 inner solve only), a dense inverse on the coarsest level
+and direct Schwarz block solves on the coarse levels.  An ini key decides
+where it is set (an option that is on builds its inverse at any size);
+where it is not, accelerator_options applies the JAX package's rule for an
+accelerator that is not a TPU (its api.py:211-260) on a CUDA card: bf16
+blocks on (not with mixed precision 0, whose complex128 coarse levels K4-
+bf16 cannot take), the coarsest dense inverse while the coarsest problem
+has at most 16,384 unknowns with the Schur form (8,192 without), direct
+block solves off (the JAX rule turns them on on a TPU only); on the CPU all
+three stay off.  SolveInfo.options says what was chosen and why.
+
+The outer loop of a complex64 inner solve asks each restart for the
+reduction that remains, but no more than a clip that adapts to the problem
+(adapt_clip: 1e-5, raised towards the measured per-sweep floor), and caps
+the inner GCR length by the memory of its two bases (inner_restart_cap);
+both are reported in SolveInfo.  slim_for_solve drops what only the setup
+needs once the setup is done.
 
 Time boundaries (`bc`, else from `antiperiodic boundary conditions`): 2
 anti-periodic, 1 periodic, 0 open (Dirichlet: the clover from the whole
@@ -56,6 +67,7 @@ solve returns the same global array on every rank.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -106,9 +118,123 @@ class SolveInfo:
     # the card's allocator high-water mark, else the Solver's tensor ledger
     # (profiling.solve_memory_mb; reference main.h:88-140)
     memory_mb: float = 0.0
+    # the multigrid outer loop's inner GCR length (inner_restart_cap) and
+    # the last inner-sweep clip it applied (adapt_clip; 0 for a complex128
+    # inner solve), as the JAX package's SolveInfo reports them
+    inner_restart_cap: int = 0
+    inner_tol_clip: float = 0.0
+    # the accelerator options of the hierarchy: {name: (on, why)}
+    options: dict = dataclasses.field(default_factory=dict)
 
 
 _SCHEMES = {1: "additive", 2: "red_black", 3: "sixteen_color"}
+OPTIONS = ("coarse_block_bf16", "coarsest_direct", "smoother_direct")
+# the largest coarsest problem (unknowns) whose dense inverse the defaults
+# build: with the Schur form (a quarter of the bytes) and without
+COARSEST_DIRECT_MAX = {True: 16384, False: 8192}
+# the inner sweep's clip (adapt_clip): where it starts, and its cap
+CLIP_START, CLIP_MAX = 1e-5, 5e-2
+# up to this many lattice sites a learned clip takes effect one restart
+# later, as in the JAX package's fused outer step (api.py:703, :723-733);
+# above, at once, as in its loop with the residual apart (:734-760)
+CLIP_LAG_SITES = 200_000
+# the two inner GCR bases may take this share of a card's memory
+# (inner_restart_cap): the JAX package's 150M complex elements a basis on a
+# 16 GB chip; its default budget where there is no card
+INNER_BASIS_SHARE = 0.15
+INNER_BASIS_BUDGET = 150_000_000
+
+
+def coarsest_n(p: SolverParams) -> int:
+    """Unknowns of the coarsest problem: its sites x 2 N of the level above
+    (the JAX package's _coarsest_n; huge without multigrid levels)."""
+    if p.num_levels < 2:
+        return 1 << 30
+    sites = int(np.prod(p.depth[p.num_levels - 1].global_lattice))
+    return sites * 2 * p.depth[p.num_levels - 2].test_vectors
+
+
+def coarsest_schur_ok(p: SolverParams) -> bool:
+    """Whether the coarsest level's dense inverse is the Schur complement's
+    (a quarter of the bytes): the gate of Multigrid._odd_even, on the
+    parameters (the JAX package's _coarsest_schur_ok)."""
+    if not p.odd_even or p.num_levels < 2:
+        return False
+    return all(e % 2 == 0 for e in p.depth[p.num_levels - 1].global_lattice)
+
+
+def accelerator_options(p: SolverParams, accelerator: bool) -> dict:
+    """The three options of the hierarchy, {name: (on, why)}: an ini key
+    decides where it is set; elsewhere the JAX package's rule for an
+    accelerator that is not a TPU (its api.py:228-260) on an accelerator,
+    all off on the CPU."""
+    n, schur = coarsest_n(p), coarsest_schur_ok(p)
+    limit = COARSEST_DIRECT_MAX[schur]
+    form = "Schur form" if schur else "no Schur form"
+    if not accelerator:
+        rule = {k: (False, "default off on the CPU") for k in OPTIONS}
+    else:
+        rule = {
+            "coarse_block_bf16": (
+                (True, "CUDA default") if p.mixed_precision else
+                (False, "off by default with mixed precision 0 (complex128 coarse "
+                        "levels; K4-bf16 takes complex64 fields)")),
+            "coarsest_direct": (n <= limit, f"CUDA default: coarsest n = {n:,} "
+                                            f"{'<=' if n <= limit else '>'} {limit:,} ({form})"),
+            "smoother_direct": (False, "CUDA default off (the JAX rule turns it on on a "
+                                       "TPU only)"),
+        }
+    out = {}
+    for key in OPTIONS:
+        val = getattr(p, key)
+        out[key] = (bool(val), "ini") if val is not None else rule[key]
+    return out
+
+
+def adapt_clip(clip: float, prev_rel, cur_rel, tol: float) -> float:
+    """The inner sweep's clip after the restart that took every lane's
+    relative residual from prev_rel to cur_rel (the JAX package's
+    adapt_clip, api.py:705-716): a lane whose sweep fell well short of its
+    target (more than 3x the reduction asked for, yet some reduction)
+    exposes the f32 per-sweep floor of this problem, and the clip rises to
+    0.7 of the weakest such reduction, at most CLIP_MAX."""
+    prev_rel, cur_rel = np.asarray(prev_rel), np.asarray(cur_rel)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ach = cur_rel / np.maximum(prev_rel, 1e-300)
+    req = np.maximum(tol / np.maximum(prev_rel, 1e-300), clip)
+    learn = (prev_rel >= tol) & (ach > 3.0 * req) & (ach < 1.0)
+    if learn.any():
+        return float(min(max(clip, 0.7 * ach[learn].max()), CLIP_MAX))
+    return clip
+
+
+def inner_restart_cap(restart_length: int, n_dof: int, batch: int, device,
+                      mesh=None) -> int:
+    """The inner GCR's length for `batch` lanes of n_dof unknowns (this
+    rank's slab): max(5, min(restart_length, budget // (n_dof batch))), so
+    that one basis holds at most `budget` complex elements (the JAX
+    package's rule, api.py:653-662).  DDAAMG_INNER_BASIS_BUDGET sets the
+    budget and DDAAMG_INNER_M_CAP the cap itself; unset, the budget is the
+    JAX package's 150M elements, or on a card INNER_BASIS_SHARE of its
+    memory for both bases in complex64 (150M on 16 GB).  Under a mesh every
+    rank takes the smallest rank's cap: the ranks' GCRs make the same
+    collective calls."""
+    env_cap = os.environ.get("DDAAMG_INNER_M_CAP")
+    if env_cap is not None:
+        cap = int(env_cap)
+    else:
+        env = os.environ.get("DDAAMG_INNER_BASIS_BUDGET")
+        if env is not None:
+            budget = int(env)
+        elif torch.device(device).type == "cuda":
+            total = torch.cuda.mem_get_info(device)[1]
+            budget = int(INNER_BASIS_SHARE * total) // (2 * 8)
+        else:
+            budget = INNER_BASIS_BUDGET
+        cap = max(5, min(restart_length, budget // max(n_dof * batch, 1)))
+    if mesh is not None:
+        cap = -int(comm.all_reduce_max(mesh, -cap))
+    return cap
 
 
 class Solver:
@@ -137,6 +263,8 @@ class Solver:
         self.status = SetupStatus()
         self._inner_dtype = (torch.complex64 if params.mixed_precision
                              else torch.complex128)
+        # the options of the last hierarchy built (accelerator_options)
+        self.options: dict = {}
 
     @property
     def lattice(self):
@@ -215,6 +343,8 @@ class Solver:
 
     def _mg_config(self) -> MGConfig:
         p = self.p
+        self.options = accelerator_options(p, self.device.type == "cuda")
+        on = {k: v[0] for k, v in self.options.items()}
         return MGConfig(
             levels=[LevelConfig(
                 lattice=tuple(d.global_lattice), block=tuple(d.block_lattice),
@@ -228,9 +358,7 @@ class Solver:
             coarse_restart=p.coarse_restart, odd_even=p.odd_even,
             scheme=_SCHEMES[p.method], dtype=self._inner_dtype,
             seed=self._seed(), mesh=self.mesh,
-            coarse_block_bf16=bool(p.coarse_block_bf16),
-            coarsest_direct=bool(p.coarsest_direct),
-            smoother_direct=bool(p.smoother_direct))
+            **on)
 
     def _seed(self) -> int:
         if not self.p.randomize_test_vectors:
@@ -330,6 +458,8 @@ class Solver:
         delta = new_m0 - self.p.m0
         if delta == 0.0:
             return
+        if self.mg is not None:
+            self.mg.require_setup("shift_update")    # before anything moves
         self.p.m0 = new_m0
         self.op = shift_diagonal(self.op, delta)
         self._op_slab = (self.op if self.mesh is None
@@ -356,6 +486,18 @@ class Solver:
             dio.write_test_vectors(path, tvs.reshape(tvs.shape[0], *self.lattice, 12),
                                    single_file=single,
                                    header={"m0": self.p.m0, "csw": self.p.csw})
+
+    def slim_for_solve(self):
+        """Drop what only the setup needs, once it is done (the JAX
+        package's Solver.slim_for_solve, api.py:868-876; a 32^4 hierarchy
+        holds its full-precision depth-1 stencil, 14.8 GB, beside the bf16
+        view the cycles read): Multigrid.slim_for_solve.  Solves go on
+        with the same bits; update_setup, shift_update and
+        write_test_vectors raise until the next setup(), which builds the
+        whole hierarchy anew.  A set_conf keeps the slim hierarchy as the
+        preconditioner of the new operator, as it keeps a full one."""
+        if self.mg is not None:
+            self.mg.slim_for_solve()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -442,7 +584,7 @@ class Solver:
                              coarsest_inverse_applies=0.0)
         t0 = time.perf_counter()
         b = self._scatter(rhs_batch)
-        x, iters, relres, resvec = self._solve_mp(
+        x, iters, relres, resvec, cap, clip = self._solve_mp(
             b, tol, None if x0 is None else self._scatter(x0))
         x_log = self._gather(x)
         self._sync()
@@ -455,7 +597,9 @@ class Solver:
                            coarse_average=st["coarse_iterations"] / total,
                            coarse_matvec_average=st["coarse_matvecs"] / total,
                            coarsest_inverse_applies=st["coarsest_inverse_applies"] / B,
-                           resvec=[float(rv[i]) for rv in resvec], memory_mb=mem)
+                           resvec=[float(rv[i]) for rv in resvec], memory_mb=mem,
+                           inner_restart_cap=cap, inner_tol_clip=clip,
+                           options=dict(self.options))
                  for i in range(B)]
         return x_log, infos
 
@@ -473,21 +617,29 @@ class Solver:
         """Outer loop of every lane of b [B, 12, V]: once per restart the
         complex128 true residual of all lanes (one K1 apply at batch B;
         also at restart 0 when x0 is given), then one inner flexible-GCR
-        restart of all lanes in the inner precision, each lane asked to
-        reduce its residual by what remains to be done, but by no more than
-        inner_tol_clip; lanes that have converged are masked off and keep
-        their x.  The default clip is 1e-5 for a complex64 inner solve (the
-        reference's inner threshold MAX(tol, 1e-5), src/linsolve.c:44: an
-        f32 sweep cannot verify a deeper reduction and stalls when asked
-        to) and none for a complex128 inner solve, which then runs as one
-        Krylov space like the reference's double-precision FGMRES.  Returns
-        (x, iterations [B], relres [B], resvec: the relres of every
-        restart)."""
+        restart of all lanes in the inner precision, of at most
+        inner_restart_cap iterations, each lane asked to reduce its
+        residual by what remains to be done, but by no more than the clip;
+        lanes that have converged are masked off and keep their x.  The
+        clip is DDAAMG_INNER_CLIP or inner_tol_clip where either is set;
+        else, for a complex64 inner solve, it adapts (adapt_clip) from
+        CLIP_START, the reference's inner threshold MAX(tol, 1e-5)
+        (src/linsolve.c:44), after every restart but the last: at once
+        above CLIP_LAG_SITES, one restart later up to there, as the JAX
+        package's loop does at each size; a complex128 inner solve has none and
+        runs as one Krylov space like the reference's double-precision
+        FGMRES.  Returns (x, iterations [B], relres [B], resvec: the relres
+        of every restart, the inner GCR length, the last clip)."""
         p = self.p
-        if p.inner_tol_clip is not None:
-            clip = float(p.inner_tol_clip)
+        env = os.environ.get("DDAAMG_INNER_CLIP")
+        fixed = float(env) if env is not None else p.inner_tol_clip
+        adaptive = fixed is None and self._inner_dtype == torch.complex64
+        if fixed is not None:
+            clip = float(fixed)
         else:
-            clip = 1e-5 if self._inner_dtype == torch.complex64 else 0.0
+            clip = CLIP_START if adaptive else 0.0
+        m = inner_restart_cap(p.restart_length, b.shape[-2] * b.shape[-1], b.shape[0],
+                              b.device, self.mesh)
         norm_b = self._norms(b)
         norm_b = np.where(norm_b == 0, 1.0, norm_b)
         x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -505,22 +657,29 @@ class Solver:
         # preconditioner
         gcr_op = (None if self._mg_op is None or self._mg_op is self._op_slab
                   else self._inner_stencil().full_op)
+        lag = int(np.prod(self.lattice)) <= CLIP_LAG_SITES
+        prev = None
         for restart in range(p.max_restarts + 1):
             r = b if (restart == 0 and x0 is None) else b - apply_fine(x)
             nr = self._norms(r)
             relres = nr / norm_b
             resvec.append(relres)
+            last = restart == p.max_restarts
+            learned = (adapt_clip(clip, prev, relres, tol)
+                       if adaptive and prev is not None and not last else clip)
+            rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300),
+                                 clip if lag else learned)
+            clip, prev = learned, relres
             active = relres >= tol
-            if not active.any() or restart == p.max_restarts:
+            if not active.any() or last:
                 break
-            rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300), clip)
             z, it = self.mg.inner_restart(
                 r.to(self._inner_dtype), torch.as_tensor(rel_tol, device=b.device),
-                m=p.restart_length, active=torch.as_tensor(active, device=b.device),
+                m=m, active=torch.as_tensor(active, device=b.device),
                 wrap=wrap, op=gcr_op)
             x = x + z.to(torch.complex128)
             iters = iters + it
-        return x, iters.cpu().numpy().astype(int), relres, resvec
+        return x, iters.cpu().numpy().astype(int), relres, resvec, m, clip
 
     def _solve_krylov_multi(self, rhs_batch, tol, x0):
         """The methods without multigrid, one right-hand side after the

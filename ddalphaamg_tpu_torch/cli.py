@@ -111,12 +111,12 @@ def _run(params, args, mesh, device) -> int:
     say(f"Desired average plaquette: {header:.13f} in [0,3]")
     say(f"Computed average plaquette: {plaq:.13f} in [0,3]")
 
-    opts = [k.replace("_", " ") for k in ("coarse_block_bf16", "coarsest_direct",
-                                           "smoother_direct") if getattr(params, k)]
-    say(f"options on: {', '.join(opts) if opts else 'none'}")
     t0 = time.perf_counter()
     solver.setup()
     say(f"setup time: {time.perf_counter() - t0:.3f} seconds")
+    if solver.options:       # the hierarchy's accelerator options, as chosen
+        say("options: " + "; ".join(f"{k.replace('_', ' ')} {'on' if on else 'off'} ({why})"
+                                     for k, (on, why) in solver.options.items()))
 
     rhs = config.make_rhs(params.right_hand_side, solver.lattice, seed=params.seed)
     x, info = solver.solve(rhs, tol=args.tol)
@@ -153,6 +153,9 @@ def _run(params, args, mesh, device) -> int:
     if info.memory_mb:
         say(f"| maximal device memory/MPI process: {info.memory_mb:<8.1f} MB        |")
     say("+----------------------------------------------------------+")
+    if info.inner_restart_cap:      # the multigrid outer loop's (outside the reference's box)
+        say(f"inner restart cap: {info.inner_restart_cap}, last inner tol clip: "
+            f"{info.inner_tol_clip:.3e}")
     if args.profile:
         from .profiling import PROF, profile_hierarchy
         say(PROF.table())

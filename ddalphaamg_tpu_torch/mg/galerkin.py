@@ -30,8 +30,14 @@ A is local; a face crossing can leave the slab, so the fine crossings add
 the half-spinor face corrections to K2 (parallel/shard_ops.wilson_hopping)
 and the coarse ones shift the 2N basis fields across ranks
 (parallel/halo.halo_exchange_shift).  The result is this rank's slab of
-the coarse operator; gather() assembles the whole of it on every rank for
-a replicated next level.
+the coarse operator; gather_blocks() assembles the whole of it on every
+rank for a replicated next level.
+
+The restriction of basis field j is column j of every block, i.e. row j of
+the packed layout [9, d (j), d (i), Vc] that K4 reads, so the blocks are
+written there directly, and the basis fields can run in chunks of columns
+(`chunk`): at 32^4 with 2N = 56 one piece's images are 5.6 GB, and the
+packed result alone 14.8 GB.
 """
 
 from __future__ import annotations
@@ -64,63 +70,74 @@ def _face_masks(lattice, coarsening, offsets=(0, 0, 0, 0)) -> tuple[np.ndarray, 
             np.stack(lo).reshape(4, -1).astype(np.float64))
 
 
-def _columns(agg, P, fields) -> torch.Tensor:
-    """Restricted basis images [2N, dof, V] -> blocks [Vc, 2N (row), 2N (col)]."""
-    return restrict(agg, P, fields).permute(2, 1, 0)
-
-
-def build_coarse_operator(stencil, agg: Aggregation, P: torch.Tensor) -> CoarseOperator:
+def build_coarse_blocks(stencil, agg: Aggregation, P: torch.Tensor,
+                        chunk=None) -> torch.Tensor:
     """D_c = P^H D P for the operator of a fine or coarse stencil (in the
-    stencil's precision)."""
+    stencil's precision), packed [9, d (j), d (i), Vc] as K4 reads it; the
+    2N basis fields run `chunk` at a time (None: all at once)."""
     if min(agg.coarsening) < 2:
         raise ValueError("the Galerkin build separates forward and backward "
                          "face couplings by site; aggregates must be at least "
                          f"2 wide, got {agg.coarsening}")
-    B = assemble_basis(agg, P).to(stencil.dtype)
+    n = 2 * agg.num_vectors
+    chunk = chunk or n
     lat = tuple(agg.fine_lattice)
     mesh = stencil.mesh
     up, lo = _face_masks(lat, agg.coarsening, stencil.offsets)
     rdtype = stencil.even.dtype
-    up = torch.as_tensor(up, dtype=rdtype, device=B.device)
-    lo = torch.as_tensor(lo, dtype=rdtype, device=B.device)
-    if isinstance(stencil, WilsonStencilSoA):
+    up = torch.as_tensor(up, dtype=rdtype, device=P.device)
+    lo = torch.as_tensor(lo, dtype=rdtype, device=P.device)
+    Pk = torch.empty((9, n, n, P.shape[0]), dtype=stencil.dtype, device=P.device)
+    fine = isinstance(stencil, WilsonStencilSoA)
+    if not fine and not isinstance(stencil, CoarseStencilSoA):
+        raise TypeError(type(stencil))
+    if fine:
         links = stencil.links
         intra = (links * (1.0 - up)[:, None, None]).contiguous()
-        A = _columns(agg, P, cuda_dslash.d_plus_clover(
-            intra, stencil.cdiag, stencil.coff, B, lat))
-        Df, Db = [], []
+        faces = []
         for mu in range(4):
             face = torch.zeros_like(links)
             face[mu] = links[mu] * up[mu]
-            if mesh is None:
-                hop = cuda_dslash.hopping(face, B, lat)
-            else:
-                hop = wilson_hopping(mesh, face, B, lat)
-            Df.append(_columns(agg, P, hop * up[mu]))
-            Db.append(_columns(agg, P, hop * lo[mu]))
-    elif isinstance(stencil, CoarseStencilSoA):
-        Pk = stencil.Pk
-        A = _columns(agg, P, cuda_coarse.coarse_apply(
-            Pk, B, lat, (0, 9), mask_block=tuple(agg.coarsening)))
-        Df, Db = [], []
-        for mu in range(4):
-            for k, mask, out in ((1 + mu, up[mu], Df), (5 + mu, lo[mu], Db)):
+            faces.append(face)
+    for j0 in range(0, n, chunk):
+        cols = slice(j0, min(n, j0 + chunk))
+        B = assemble_basis(agg, P, range(n)[cols]).to(stencil.dtype)
+        if fine:
+            Pk[0, cols] = restrict(agg, P, cuda_dslash.d_plus_clover(
+                intra, stencil.cdiag, stencil.coff, B, lat))
+            for mu in range(4):
                 if mesh is None:
-                    w = neighbor(B, k, lat) * mask
+                    hop = cuda_dslash.hopping(faces[mu], B, lat)
                 else:
-                    w = halo_exchange_shift(mesh, B, -1 if k < 5 else 1, mu, lat) * mask
-                out.append(_columns(agg, P, torch.einsum(
-                    "jix,bjx->bix", Pk[k], w)))
-    else:
-        raise TypeError(type(stencil))
-    return CoarseOperator(A=A.contiguous(), Df=torch.stack(Df),
-                          Db=torch.stack(Db))
+                    hop = wilson_hopping(mesh, faces[mu], B, lat)
+                Pk[1 + mu, cols] = restrict(agg, P, hop * up[mu])
+                Pk[5 + mu, cols] = restrict(agg, P, hop * lo[mu])
+                del hop
+        else:
+            Pk[0, cols] = restrict(agg, P, cuda_coarse.coarse_apply(
+                stencil.Pk, B, lat, (0, 9), mask_block=tuple(agg.coarsening)))
+            for mu in range(4):
+                for k, mask in ((1 + mu, up[mu]), (5 + mu, lo[mu])):
+                    if mesh is None:
+                        w = neighbor(B, k, lat) * mask
+                    else:
+                        w = halo_exchange_shift(mesh, B, -1 if k < 5 else 1, mu, lat) * mask
+                    Pk[k, cols] = restrict(agg, P, torch.einsum("jix,bjx->bix",
+                                                                stencil.Pk[k], w))
+        del B
+    return Pk
 
 
-def gather(mesh, cop: CoarseOperator, lattice_local) -> CoarseOperator:
-    """The whole coarse operator on every rank from each rank's slab of it
-    (the replicated coarsest level's assembly)."""
-    def g(a):     # sites on axis -3: [*, V_l, d, d]
-        return gather_field(mesh, a.movedim(-3, -1), lattice_local).movedim(-1, -3).contiguous()
+def build_coarse_operator(stencil, agg: Aggregation, P: torch.Tensor) -> CoarseOperator:
+    """build_coarse_blocks as site-major blocks (the JAX package's form)."""
+    Pk = build_coarse_blocks(stencil, agg, P)
+    return CoarseOperator(A=Pk[0].permute(2, 1, 0).contiguous(),
+                          Df=Pk[1:5].permute(0, 3, 2, 1).contiguous(),
+                          Db=Pk[5:9].permute(0, 3, 2, 1).contiguous())
 
-    return CoarseOperator(A=g(cop.A), Df=g(cop.Df), Db=g(cop.Db))
+
+def gather_blocks(mesh, Pk: torch.Tensor, lattice_local) -> torch.Tensor:
+    """The whole packed coarse operator [9, d, d, V] on every rank from each
+    rank's slab of it [9, d, d, V_l] (the replicated coarsest level's
+    assembly)."""
+    return gather_field(mesh, Pk, lattice_local).contiguous()

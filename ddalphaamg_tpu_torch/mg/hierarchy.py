@@ -57,6 +57,16 @@ parallel/mesh.py:161-187 refuses the packed ones there), whose coarse
 stencils have no bf16 copy: there coarse_block_bf16 leaves the coarse
 blocks in full precision and stores only the inverses in bf16, as the JAX
 package does (its hierarchy.py:526-535, :595-604, :613-624).
+
+Memory (a 32^4 lattice with 28 test vectors: a depth-1 stencil of 9 x 56^2
+blocks at 65,536 sites is 14.8 GB in complex64): re_setup drops a level's
+stale stencil, bf16 view and inverses before it builds their successors,
+the Galerkin build writes the packed blocks directly (mg/galerkin.py), and
+the initial test-vector smoothing, the setup cycles and the Galerkin
+basis run their lanes in chunks that fit SETUP_MEMORY_SHARE of the card's
+free memory (one chunk unless the level is large).  slim_for_solve drops
+the test vectors and the full-precision coarse stencils (their bf16 views
+stay) once the setup is done.
 """
 
 from __future__ import annotations
@@ -80,14 +90,17 @@ from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_fie
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
 from ..solvers.device_gmres import device_gcr
-from .galerkin import build_coarse_operator, gather
+from .galerkin import build_coarse_blocks, gather_blocks
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
 
 COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
 # the setup's memory estimate (_lane_bytes, _setup_chunk): fields of one
 # lane a level holds at once in a cycle (SAP, restriction, GCR temporaries),
-# and the share of the card's free memory the setup's lanes may take
+# fields of one basis column of a Galerkin build (the basis field, its
+# images, a masked copy, the aggregate copy of restrict), and the share of
+# the card's free memory the setup's lanes may take
 LANE_FIELDS = 32
+GALERKIN_FIELDS = 6
 SETUP_MEMORY_SHARE = 0.5
 
 
@@ -181,6 +194,29 @@ def _slab_geom(geom: Geometry, mesh) -> Geometry:
                     block=tuple(geom.block), dof=geom.dof)
 
 
+def lane_chunk(n: int, lane_bytes: int, device, mesh=None) -> int:
+    """Lanes of one batch: all n, except where SETUP_MEMORY_SHARE of the
+    card's free memory (the caching allocator's idle blocks counted free)
+    cannot hold n lanes of lane_bytes each.  Under a mesh every rank takes
+    the smallest rank's chunk, so that all ranks make the same collective
+    calls."""
+    dev = torch.device(device)
+    chunk = n
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        chunk = max(1, min(n, int(SETUP_MEMORY_SHARE * free) // max(lane_bytes, 1)))
+    if mesh is not None:
+        chunk = -int(comm.all_reduce_max(mesh, -chunk))
+    return chunk
+
+
+def lane_chunks(n: int, lane_bytes: int, device, mesh=None):
+    """[(start, stop)] of the chunks lane_chunk cuts n lanes into."""
+    chunk = lane_chunk(n, lane_bytes, device, mesh)
+    return [(c0, min(n, c0 + chunk)) for c0 in range(0, n, chunk)]
+
+
 class Multigrid:
     """The AMG preconditioner: hierarchy + cycles + adaptive setup.  Initial
     test vectors are drawn from a torch.Generator seeded with cfg.seed;
@@ -199,6 +235,7 @@ class Multigrid:
                       "coarsest_inverse_applies": 0.0}
         self.build_times: dict[str, float] = {}     # seconds of each inverse build
         self._defer_dense = False
+        self.slim = False                           # slim_for_solve ran
         self.fine = self._build(op)
 
     # ------------------------------------------------------------------
@@ -270,42 +307,58 @@ class Multigrid:
     def _initial_test_vectors(self, level: MGLevel, gen) -> torch.Tensor:
         """Random vectors progressively smoothed with 1, 2, 3 SAP cycles
         (reference interpolation_PRECISION_define,
-        src/setup_generic.c:215-246), all test vectors as one batch."""
+        src/setup_generic.c:215-246), all test vectors as one batch, in
+        chunks of lanes that fit the card (lane_chunk)."""
         s = level.stencil
         shape = (level.cfg.num_test_vectors, s.field_shape[0], level.geom.num_sites)
         rdtype = torch.empty((), dtype=self.cfg.dtype).real.dtype
         tv = torch.complex(torch.randn(shape, generator=gen, dtype=rdtype),
                            torch.randn(shape, generator=gen, dtype=rdtype))
-        v = s.slab(tv).to(device=s.device, dtype=s.dtype)
+        tv = s.slab(tv)
         sm = level.smoother
-        for ncy in (1, 2, 3):
-            v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
-        return _normalize(v, s)
+        lane = LANE_FIELDS * math.prod(s.field_shape) * s.dtype.itemsize
+        out = []
+        for c0, c1 in lane_chunks(shape[0], lane, s.device, s.mesh):
+            v = tv[c0:c1].to(device=s.device, dtype=s.dtype)
+            for ncy in (1, 2, 3):
+                v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
+            out.append(v)
+        return _normalize(torch.cat(out), s)
 
     def _resetup(self, level: MGLevel, next_geom: Geometry, next_mesh):
         """One coarsening rebuild: P from the level's test vectors, then the
         Galerkin coarse stencil (on next_mesh, or gathered whole onto every
         rank when the next level is replicated)."""
         P = build_interpolation(level.agg, level.test_vectors)
-        cop = build_coarse_operator(level.stencil, level.agg, P)
-        mesh = level.stencil.mesh
+        s = level.stencil
+        mesh = s.mesh
+        column = GALERKIN_FIELDS * math.prod(s.field_shape) * s.dtype.itemsize
+        Pk = build_coarse_blocks(s, level.agg, P, chunk=lane_chunk(
+            2 * level.agg.num_vectors, column, s.device, mesh))
         if mesh is not None and next_mesh is None:
-            cop = gather(mesh, cop, level.agg.coarse_lattice)
-        return P, CoarseStencilSoA.build(cop, _slab_geom(next_geom, next_mesh),
-                                         dtype=self.cfg.dtype, mesh=next_mesh)
+            Pk = gather_blocks(mesh, Pk, level.agg.coarse_lattice)
+        return P, CoarseStencilSoA.from_blocks(Pk.to(self.cfg.dtype),
+                                               _slab_geom(next_geom, next_mesh),
+                                               mesh=next_mesh)
 
     def re_setup(self, level: MGLevel, depth_only: bool = False):
         """Rebuild P and the Galerkin operators from `level` downward
         (re_setup_PRECISION); depth_only rebuilds this one coarsening only
-        (the interpolation-1 setup's rebuild, src/setup_generic.c:373-390)."""
+        (the interpolation-1 setup's rebuild, src/setup_generic.c:373-390).
+        The stale P, stencil, bf16 view and inverses are dropped before
+        their successors are built (the views and inverses are rebuilt at
+        first use)."""
+        self.require_setup("re_setup")
         lvl = level
         while lvl is not None and not lvl.is_coarsest:
             nxt = lvl.next
-            lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom, nxt.stencil.mesh)
+            mesh = nxt.stencil.mesh
+            lvl.P = nxt.stencil = nxt.cycle_stencil = nxt.dense_inv = nxt.block_inv = None
+            if nxt.smoother is not None:
+                nxt.smoother.replace_stencil(None)
+            lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom, mesh)
             if nxt.smoother is not None:
                 nxt.smoother.replace_stencil(nxt.stencil)
-            # stale against the rebuilt stencil; rebuilt at first use
-            nxt.cycle_stencil = nxt.dense_inv = nxt.block_inv = None
             if depth_only:
                 break
             lvl = nxt
@@ -318,15 +371,47 @@ class Multigrid:
         +delta I on its self blocks, and the bf16 views and stored inverses
         are dropped, to be rebuilt at first use.  No bootstrap and no
         Galerkin build runs."""
+        self.require_setup("shift_update")
         for lvl in self._levels():
             lvl.stencil = shift_stencil(lvl.stencil, delta, op)
             if lvl.smoother is not None:
                 lvl.smoother.replace_stencil(lvl.stencil)
             lvl.cycle_stencil = lvl.dense_inv = lvl.block_inv = None
 
+    def require_setup(self, what: str):
+        """Refuse a call that needs what slim_for_solve dropped."""
+        if self.slim:
+            raise ValueError(f"{what}: the hierarchy was slimmed for solves "
+                             "(slim_for_solve dropped its test vectors and full-precision "
+                             "coarse stencils); call setup() first")
+
+    def slim_for_solve(self):
+        """Drop what a set-up hierarchy needs only for more setup (the JAX
+        package's Multigrid.slim_for_solve, hierarchy.py:1020-1045): the
+        test vectors of every level and, where coarse_block_bf16 keeps a
+        bf16 view of a coarse stencil, the full-precision stencil, which the
+        view replaces (it is all the cycles read).  The port's Galerkin
+        builds read the stencils themselves, so there is no Galerkin
+        operator apart from them to drop.  Missing inverses are built first,
+        from the full-precision stencils, so the solves that follow give the
+        bits they would have given.  Afterwards re_setup, the setups,
+        shift_update and the test-vector calls raise (require_setup)."""
+        if self.slim:
+            return
+        self._ensure_inverses()
+        for lvl in self._levels():
+            lvl.test_vectors = None
+            view = self._cycle_view(lvl)
+            if view is not lvl.stencil:
+                lvl.stencil = view
+                if lvl.smoother is not None:
+                    lvl.smoother.replace_stencil(view)
+        self.slim = True
+
     def get_test_vectors(self) -> np.ndarray:
         """The fine level's test vectors as numpy [N, T, Z, Y, X, 4, 3]
         (gathered whole onto every rank under a mesh; checkpointing)."""
+        self.require_setup("write_test_vectors")
         lvl = self.fine
         tv = lvl.test_vectors
         if lvl.stencil.mesh is not None:
@@ -337,6 +422,7 @@ class Multigrid:
         """Install test vectors [N, T, Z, Y, X, *dof] at `depth` and rebuild
         the hierarchy from there (reference read_tv_from_file_PRECISION,
         src/setup_generic.c:131-162)."""
+        self.require_setup("set_test_vectors")
         level = self._levels()[depth]
         s = level.stencil
         n = level.cfg.num_test_vectors
@@ -544,6 +630,7 @@ class Multigrid:
     def bootstrap_setup(self, setup_iter: Optional[int] = None):
         """inv_iter_inv_fcycle_PRECISION: refine test vectors with the
         current hierarchy, rebuilding P / D_c each iteration."""
+        self.require_setup("bootstrap_setup")
         it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
         if self.cfg.num_levels < 2 or it <= 0:
             return
@@ -563,6 +650,7 @@ class Multigrid:
         the odd-even Schur GCR where that level is the coarsest, then
         interpolation and post-smoothing towards tv) and rebuilds that one
         coarsening; then the next level does the same."""
+        self.require_setup("twolevel_extension_setup")
         it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
         if self.cfg.num_levels < 2 or it <= 0:
             return
@@ -641,20 +729,8 @@ class Multigrid:
         return total
 
     def _setup_chunk(self, level: MGLevel, n: int) -> int:
-        """Lanes of one setup batch: all n, except where SETUP_MEMORY_SHARE
-        of the card's free memory (the caching allocator's idle blocks
-        counted free) cannot hold them.  Under a mesh every rank takes the
-        smallest rank's chunk, so that all ranks make the same collective
-        calls."""
-        dev = level.stencil.device
-        chunk = n
-        if dev.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(dev)
-            free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-            chunk = max(1, min(n, int(SETUP_MEMORY_SHARE * free) // self._lane_bytes(level)))
-        if self.cfg.mesh is not None:
-            chunk = -int(comm.all_reduce_max(self.cfg.mesh, -chunk))
-        return chunk
+        """Lanes of one setup batch of n at `level` (lane_chunk)."""
+        return lane_chunk(n, self._lane_bytes(level), level.stencil.device, self.cfg.mesh)
 
     def _inv_iter_fcycle(self, level: MGLevel, setup_iter: int):
         for j in range(setup_iter):

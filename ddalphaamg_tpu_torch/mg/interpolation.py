@@ -111,12 +111,14 @@ def interpolate(agg: Aggregation, P: torch.Tensor, v_c: torch.Tensor) -> torch.T
     return from_aggregates(agg, torch.einsum("xckm,...xck->...xcm", P, vc))
 
 
-def assemble_basis(agg: Aggregation, P: torch.Tensor) -> torch.Tensor:
-    """All 2N coarse basis vectors as fine fields, B[c*N + k] = P e_{c,k} on
-    every aggregate at once: [2N, dof, V].  Input of the Galerkin product."""
+def assemble_basis(agg: Aggregation, P: torch.Tensor, cols=None) -> torch.Tensor:
+    """The coarse basis vectors j in cols (default: all 2N) as fine fields,
+    B[j] = P e_{c,k} (j = c*N + k) on every aggregate at once: [len(cols),
+    dof, V].  Input of the Galerkin product."""
     N = agg.num_vectors
-    Vc = P.shape[0]
-    bagg = torch.zeros(2, N, Vc, 2, agg.m, dtype=P.dtype, device=P.device)
-    for c in range(2):
-        bagg[c, :, :, c] = P[:, c].transpose(0, 1)
-    return from_aggregates(agg, bagg.reshape(2 * N, Vc, 2, agg.m))
+    cols = range(2 * N) if cols is None else cols
+    bagg = torch.zeros(len(cols), P.shape[0], 2, agg.m, dtype=P.dtype, device=P.device)
+    for i, j in enumerate(cols):
+        c, k = divmod(j, N)
+        bagg[i, :, c] = P[:, c, k]
+    return from_aggregates(agg, bagg)

@@ -245,12 +245,17 @@ class CoarseStencilSoA(_SoALayout):
         """From the site-major blocks (this rank's slab of them under a
         mesh, with geom the slab's geometry)."""
         dtype = dtype or cop.A.dtype
-        rdtype = torch.empty((), dtype=dtype).real.dtype
-        Ainv = torch.linalg.inv(cop.A)
-        even = fast.parity_mask(geom.lattice, EVEN, rdtype, cop.A.device,
+        return cls.from_blocks(cop.pack().to(dtype), geom, mesh)
+
+    @classmethod
+    def from_blocks(cls, Pk: torch.Tensor, geom: Geometry, mesh=None) -> "CoarseStencilSoA":
+        """From the packed blocks [9, d (j), d (i), V] themselves (kept, not
+        copied: at 32^4 they are 14.8 GB) in their dtype."""
+        rdtype = torch.empty((), dtype=Pk.dtype).real.dtype
+        Ainv = torch.linalg.inv(Pk[0].permute(2, 1, 0))
+        even = fast.parity_mask(geom.lattice, EVEN, rdtype, Pk.device,
                                _slab_parity(mesh, geom.lattice))
-        return cls(Pk=cop.pack().to(dtype),
-                   Pk_inv=Ainv[None].permute(0, 3, 2, 1).contiguous().to(dtype),
+        return cls(Pk=Pk, Pk_inv=Ainv[None].permute(0, 3, 2, 1).contiguous(),
                    even=even, odd=1.0 - even, geom=geom, mesh=mesh)
 
     @property

@@ -7,9 +7,12 @@
 
 CLI:  python -m ddalphaamg_tpu_torch.tools <unit|random|split|tolime|tobin|fromddhmc> ...
 
-numpy only: the fields are the JAX package's tools.py's bit for bit from
-the same seed (the same numpy calls in the same order), and so are the
-files.
+The fields are the JAX package's tools.py's bit for bit from the same seed
+(the same numpy calls in the same order), and so are the files.
+rough_su3(..., device="cuda") draws the same numbers with numpy and does the
+SU(3) projections and the plaquettes in complex128 on the card (a 32^4
+field takes about a minute on a CPU): the field equals the numpy one to
+rounding (1e-12).
 """
 
 from __future__ import annotations
@@ -18,15 +21,37 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 from . import io as dio
 from . import lime as dlime
 
 
-def random_su3(rng, shape) -> np.ndarray:
+def _qr_q(a: torch.Tensor) -> torch.Tensor:
+    """The unitary factor of [..., 3, 3] matrices whose R has a positive
+    real diagonal: classical Gram-Schmidt of the columns, each projection
+    done twice.  numpy's Householder QR (real diagonal of R) with the sign
+    fixes of random_su3 and _mix_to_unit gives this same factor.
+    torch.linalg.qr gives it too, but is far slower on a card for millions
+    of 3 x 3 matrices (scripts/probe_torch_su3.py times both)."""
+    cols = []
+    for k in range(3):
+        v = a[..., :, k]
+        for _ in range(2 if cols else 0):
+            for q in cols:
+                v = v - q * (q.conj() * v).sum(-1, keepdim=True)
+        cols.append(v / torch.linalg.vector_norm(v, dim=-1, keepdim=True))
+    return torch.stack(cols, dim=-1)
+
+
+def random_su3(rng, shape, device=None):
     """Haar-ish random SU(3): QR of a complex Ginibre matrix, phase-fixed
-    to det = 1."""
+    to det = 1.  With a device the numpy draw is projected there in
+    complex128 (a tensor on that device)."""
     a = rng.normal(size=(*shape, 3, 3)) + 1j * rng.normal(size=(*shape, 3, 3))
+    if device is not None:
+        q = _qr_q(torch.as_tensor(a, device=device))
+        return q / (torch.linalg.det(q) ** (1.0 / 3))[..., None, None]
     q, r = np.linalg.qr(a)
     d = np.diagonal(r, axis1=-2, axis2=-1)
     q = q * (d / np.abs(d))[..., None, :]       # Haar measure on U(3)
@@ -34,9 +59,12 @@ def random_su3(rng, shape) -> np.ndarray:
     return q / (det ** (1.0 / 3))[..., None, None]   # project to SU(3)
 
 
-def _plaquette(U: np.ndarray) -> float:
+def _plaquette(U) -> float:
     """Average plaquette normalized to [0,3] (reference calc_plaq,
-    src/dirac.c:568), in numpy: the tools run on the host."""
+    src/dirac.c:568), in numpy, or on a tensor's device in complex128."""
+    if isinstance(U, torch.Tensor):
+        from .gauge import average_plaquette
+        return average_plaquette(U)
     total = 0.0
     count = 0
     for mu in range(4):
@@ -57,9 +85,14 @@ def make_unit_conf(path: str, lattice) -> float:
     return 3.0
 
 
-def _mix_to_unit(U: np.ndarray, epsilon: float) -> np.ndarray:
+def _mix_to_unit(U, epsilon: float):
     """SU(3)-project eye + epsilon * (U - eye): a hot/cold interpolation
-    between the unit config (epsilon=0) and Haar-random (epsilon=1)."""
+    between the unit config (epsilon=0) and Haar-random (epsilon=1); a
+    tensor on its device in complex128."""
+    if isinstance(U, torch.Tensor):
+        eye = torch.eye(3, dtype=torch.complex128, device=U.device)
+        q = _qr_q(eye + epsilon * (U - eye))
+        return q * (torch.linalg.det(q) ** (1.0 / 3.0)).conj()[..., None, None]
     eye = np.eye(3, dtype=np.complex128)
     A = eye + epsilon * (U - eye)
     q, r = np.linalg.qr(A)
@@ -83,18 +116,20 @@ def make_random_conf(path: str, lattice, seed: int = 0,
 
 
 def rough_su3(lattice, seed: int = 0, target_plaq: float = 1.7867,
-              tol: float = 5e-3) -> np.ndarray:
+              tol: float = 5e-3, device=None) -> np.ndarray:
     """Random SU(3) field with the average plaquette tuned (by bisection on
     the hot/cold mixing parameter) to `target_plaq` in [0, 3] -- default
     matches the bundled beta = 6.0 reference configurations (computed
     plaquette 1.7866 on both 4^4 and 8^4, conf/4x4x4x4b6.0000id3n1), so
     benchmark solves face reference-roughness gauge disorder instead of a
-    flattering near-free field.  Deterministic in (lattice, seed)."""
+    flattering near-free field.  Deterministic in (lattice, seed).  With a
+    device ("cuda") the projections and plaquettes run there (module
+    note); the field is returned as numpy either way."""
     # tune the mixing parameter on a cheap 8^4 proxy field (the plaquette
     # vs epsilon curve is statistically lattice-size independent), then
     # refine with a couple of bisection steps on the target lattice
     proxy_lat = tuple(min(8, e) for e in lattice)
-    Up = random_su3(np.random.default_rng(seed + 1), (4, *proxy_lat))
+    Up = random_su3(np.random.default_rng(seed + 1), (4, *proxy_lat), device)
     lo, hi = 0.0, 1.0
     eps = 0.5
     for _ in range(18):
@@ -105,7 +140,7 @@ def rough_su3(lattice, seed: int = 0, target_plaq: float = 1.7867,
         else:
             hi = eps
     rng = np.random.default_rng(seed)
-    U = random_su3(rng, (4, *lattice))
+    U = random_su3(rng, (4, *lattice), device)
     lo, hi = max(0.0, eps - 0.05), min(1.0, eps + 0.05)
     for _ in range(6):
         eps = 0.5 * (lo + hi)
@@ -116,7 +151,8 @@ def rough_su3(lattice, seed: int = 0, target_plaq: float = 1.7867,
             lo = eps
         else:
             hi = eps
-    return _mix_to_unit(U, eps)
+    U = _mix_to_unit(U, eps)
+    return U.cpu().numpy() if isinstance(U, torch.Tensor) else U
 
 
 def make_rough_conf(path: str, lattice, seed: int = 0,

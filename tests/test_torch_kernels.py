@@ -442,7 +442,9 @@ mixed precision: 1
 
 @pytest.mark.gpu
 def test_small_solve_runs_through_the_kernels(cuda):
-    p = config.parse_ini(SMALL)
+    # the options off explicitly: on a card they default to the JAX rule
+    p = config.parse_ini(SMALL + "coarse block bf16: 0\ncoarsest direct: 0\n"
+                                 "smoother direct: 0\n")
     U = _unitary_links((8, 8, 8, 8), 4)
     kernels.reset_counts()
     s = api.Solver(p, device=cuda)
@@ -470,5 +472,25 @@ def test_small_solve_with_the_options_runs_through_the_kernels(cuda):
     x, info = s.solve(rhs)
     assert info.converged and s.true_residual(x, rhs) < 1e-10
     assert info.coarse_matvec_average == 0 and info.coarsest_inverse_applies > 0
+    counts = kernels.counts()
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K4-bf16", "K6")), counts
+
+
+@pytest.mark.gpu
+def test_small_solve_with_the_cuda_defaults_runs_through_the_kernels(cuda):
+    """No option keys: on a card bf16 blocks and the coarsest dense inverse
+    (2^4 x 16 = 256 unknowns) are on, direct block solves off."""
+    p = config.parse_ini(SMALL)
+    U = _unitary_links((8, 8, 8, 8), 4)
+    kernels.reset_counts()
+    s = api.Solver(p, device=cuda)
+    s.set_conf(U)
+    s.setup()
+    rhs = config.make_rhs("ones", s.lattice)
+    x, info = s.solve(rhs)
+    assert info.converged and s.true_residual(x, rhs) < 1e-10
+    assert {k: v[0] for k, v in info.options.items()} == {
+        "coarse_block_bf16": True, "coarsest_direct": True, "smoother_direct": False}
+    assert info.inner_restart_cap == 50 and info.inner_tol_clip >= 1e-5
     counts = kernels.counts()
     assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K4-bf16", "K6")), counts
