@@ -108,7 +108,9 @@ class SolveInfo:
     converged: bool
     solve_time: float
     # coarsest iterations per outer iteration (one per dense-inverse apply
-    # with coarsest direct, as in the JAX package)
+    # with coarsest direct, as in the JAX package); on a card with one rank
+    # the coarsest GCR is a CUDA graph replay whose [B, 3] counters come out
+    # of the graph with x (mg/coarsest.py), elsewhere the host loop's
     coarse_average: float = 0.0
     # coarsest GCR operator applications per outer iteration, and dense
     # inverse applies in the solve (the JAX package's SolveInfo fields)
@@ -389,6 +391,8 @@ class Solver:
             raise RuntimeError("call set_conf first")
         p = self.p
         t0 = time.perf_counter()
+        if self.mg is not None:
+            self.mg.drop_graphs()
         self.mg = None
         if self.multigrid:
             mg = self.build_hierarchy()       # also the preconditioner

@@ -7,13 +7,20 @@ import, into build/torch_kernels/ under the repository root (listed in
 .gitignore), keyed by a hash of the sources.  A failed build raises.
 
 Every kernel has a `Kernel` record whose `launches` counter its wrapper
-increments exactly where it launches the CUDA kernel; a run can reset the
-counters and read them afterwards to show that it went through the kernels.
+increments exactly where it launches the CUDA kernel (`launched`); a run can
+reset the counters and read them afterwards to show that it went through the
+kernels.  A wrapper called while a CUDA graph is captured (solvers/
+cuda_graph.py) launches nothing: `launched` then records the launch into the
+segment of the graph being captured (`recording`), and the graph's
+`GraphLaunches` turn its replays and its device trip counter into launches
+when the counts are next read (`counts`, `reset_counts`), so that a replay
+adds no read of the device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -21,6 +28,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
+from collections import Counter
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,15 +72,80 @@ KERNELS = {
     "K6": Kernel("K6 bf16 batched matvec", "cuda", "ddalphaamg_tpu_torch/csrc/dense.cu",
                  "ddalphaamg_tpu/operators/stencil.py:710, :727 and "
                  "ddalphaamg_tpu/smoothers/sap.py:193 (XLA einsums, no pallas_call)"),
+    "G": Kernel("G coarsest GCR as one CUDA graph (WHILE / IF nodes set by its kernels)",
+                "cuda", "ddalphaamg_tpu_torch/csrc/graph.cu",
+                "ddalphaamg_tpu/mg/hierarchy.py:659 (_coarsest_solve_traced: the GCR's "
+                "lax.while_loop in a lax.scan, one XLA program, no pallas_call)"),
 }
 
 
+_recording: list = []       # the launch counters of the graph segments being captured
+_graphs: list = []          # the GraphLaunches of graphs replayed since their last fold
+
+
+def launched(key: str):
+    """One launch of kernel `key` by its wrapper, or, while a graph is
+    captured, one launch recorded into the segment being captured."""
+    if _recording:
+        _recording[-1][key] += 1
+    else:
+        KERNELS[key].launches += 1
+
+
+@contextlib.contextmanager
+def recording(segment: Counter):
+    """Record the launches of the wrappers called inside into `segment`
+    (a graph segment being captured) instead of counting them."""
+    _recording.append(segment)
+    try:
+        yield segment
+    finally:
+        _recording.pop()
+
+
+class GraphLaunches:
+    """The launches of one captured graph: `per_call` kernels launched by
+    every replay, `per_trip` by every executed body of its conditional
+    nodes; `trips` is the graph's device counter of executed bodies (it
+    only grows).  Replays are counted on the host (`replayed`); the trips
+    are read when the counts are next read."""
+
+    def __init__(self, owner, per_call: Counter, per_trip: Counter, trips):
+        self._owner = weakref.ref(owner)
+        self.per_call, self.per_trip, self.trips = per_call, per_trip, trips
+        self.replays = self._folded_replays = self._folded_trips = 0
+
+    def replayed(self):
+        self.replays += 1
+        if self not in _graphs:
+            _graphs.append(self)
+
+    def fold(self):
+        """Add the launches since the last fold to KERNELS (one read of the
+        trip counter)."""
+        trips = int(self.trips)
+        calls, bodies = self.replays - self._folded_replays, trips - self._folded_trips
+        for key, n in self.per_call.items():
+            KERNELS[key].launches += n * calls
+        for key, n in self.per_trip.items():
+            KERNELS[key].launches += n * bodies
+        self._folded_replays, self._folded_trips = self.replays, trips
+
+
+def _fold_graphs():
+    for g in _graphs:
+        g.fold()
+    _graphs[:] = [g for g in _graphs if g._owner() is not None]
+
+
 def reset_counts():
+    _fold_graphs()
     for k in KERNELS.values():
         k.launches = 0
 
 
 def counts() -> dict:
+    _fold_graphs()
     return {key: k.launches for key, k in KERNELS.items()}
 
 
@@ -90,6 +164,13 @@ _SIGNATURES = {
     "ddaamg_coarse_halo_bf16": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ddaamg_dense_bf16_mrhs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ddaamg_graph_begin": [_P, _P],
+    "ddaamg_graph_if": [_P, _P, _P],
+    "ddaamg_graph_while": [_P, _P],
+    "ddaamg_graph_close": [_P, _P, _P, _I],
+    "ddaamg_graph_end": [_P, _P],
+    "ddaamg_graph_launch": [_P, _P],
+    "ddaamg_graph_destroy": [_P, _P],
 }
 
 _lib = None

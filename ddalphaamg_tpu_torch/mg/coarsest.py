@@ -1,0 +1,97 @@
+"""The coarsest level's GCR solve (coarse_solve_odd_even_PRECISION,
+src/coarse_oddeven_generic.c:1139; the JAX package's _coarsest_solve_traced,
+ddalphaamg_tpu/mg/hierarchy.py:659-699) and its CUDA graph.
+
+coarsest_gcr is the solve of every lane of b [B, d, V]: with odd-even, the
+odd sites eliminated (b_e = even (b - hop(A_oo^-1 b))), GCR on the even-site
+Schur complement, the odd sites reconstructed; else GCR on the full
+operator.  It returns (x, counters [B, 3]) with counters = [iterations,
+operator applications (iterations + one residual apply a restart), 0], as
+the JAX package counts them.  gcr is the GCR driver: the host loop
+(device_gcr) or the program of a captured graph.
+
+CoarsestGraph runs the whole of coarsest_gcr, prologue, every restart with
+its residual apply, each restart's iterations with their early exit, the
+epilogue and the counters, as one replay of one CUDA graph
+(solvers/cuda_graph.py): the restarts a WHILE node, iteration j of a restart
+the body of an IF node nested in the body of j - 1.  The right-hand side is
+copied into a static buffer, x and the counters are cloned out of static
+ones; no replay reads the device.  The graph holds the stencil it was
+captured from (the Multigrid drops it with that stencil).  A graph's launches
+per replay and per executed iteration are recorded at capture and its
+device trip counter gives the iterations (kernels.GraphLaunches), so the
+launch counts equal the host loop's.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from .. import kernels
+from ..operators.stencil import ODD, schur
+from ..solvers.cuda_graph import CudaGraph
+from ..solvers.device_gmres import device_gcr, gcr_program
+
+COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
+# fields of one lane a graph's pool holds beside its bases W and Q (the
+# state, the prologue's and epilogue's fields, one iteration's temporaries)
+POOL_FIELDS = 32
+
+
+def coarsest_gcr(s, b, m: int, tol: float, n_restarts: int, odd_even: bool,
+                 gcr=device_gcr):
+    """The coarsest GCR solve of every lane of b [B, d, V] on stencil s
+    (module note); returns (x, counters [B, 3])."""
+    if odd_even:
+        b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
+        x_e, iters, _, _ = gcr(lambda v: schur(s, v), b_e, m=m, tol=tol,
+                               n_restarts=n_restarts, allsum=s.allsum)
+        x_e = s.even * x_e
+        x = x_e + s.self_inv(b - s.hop(x_e), ODD)
+    else:
+        x, iters, _, _ = gcr(s.full_op, b, m=m, tol=tol, n_restarts=n_restarts,
+                             allsum=s.allsum)
+    iters = iters.to(COUNTER_DTYPE)
+    return x, torch.stack([iters, iters + n_restarts, torch.zeros_like(iters)], dim=1)
+
+
+class CoarsestGraph:
+    """coarsest_gcr for B lanes on stencil s as one CUDA graph (module
+    note); capture is the graph class (CudaGraph; tests give a stand-in).
+    Calling it replays the graph."""
+
+    def __init__(self, s, B: int, m: int, tol: float, n_restarts: int, odd_even: bool,
+                 capture=CudaGraph):
+        self.stencil = s
+        dev = s.device
+        self.b = torch.zeros((B, *s.field_shape), dtype=s.dtype, device=dev)
+        self.trips = torch.zeros((), dtype=torch.long, device=dev)   # only grows
+        self.graph = capture(dev)
+        out = self._out = {}      # the program's x and counters (static once captured)
+
+        def program(ctl):
+            gcr = functools.partial(gcr_program, ctl, trips=self.trips)
+            out["x"], out["counters"] = coarsest_gcr(s, self.b, m, tol, n_restarts,
+                                                     odd_even, gcr=gcr)
+
+        lane = math.prod(s.field_shape) * self.b.element_size()
+        self.graph.capture(program, need=(2 * m + POOL_FIELDS) * B * lane)
+        self.trips.zero_()      # a capture runs nothing; a stand-in may have
+        self.launches = kernels.GraphLaunches(self, self.graph.call, self.graph.trip or {},
+                                              self.trips)
+
+    def __call__(self, b):
+        """(x, counters [B, 3]) of the lanes b [B, d, V]: one replay."""
+        self.b.copy_(b)
+        self.graph.launch()
+        self.launches.replayed()
+        return self._out["x"].clone(), self._out["counters"].clone()
+
+    def close(self):
+        """Free the graph and its memory pool (the outputs first: they live
+        in the pool)."""
+        self._out.clear()
+        self.graph.close()

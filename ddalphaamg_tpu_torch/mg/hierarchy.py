@@ -67,6 +67,17 @@ basis run their lanes in chunks that fit SETUP_MEMORY_SHARE of the card's
 free memory (one chunk unless the level is large).  slim_for_solve drops
 the test vectors and the full-precision coarse stencils (their bf16 views
 stay) once the setup is done.
+
+The coarsest GCR (mg/coarsest.py).  On a card with one rank (no mesh) every
+coarsest solve that runs the GCR is one replay of a CUDA graph, the
+counterpart of the JAX package's traced coarsest solve: no read of the
+device inside it.  The level keeps one graph per (batch, field dtype, block
+dtype) and checks that its stencil is the one captured; re_setup,
+shift_update, slim_for_solve and the end of a setup drop the graphs, and a
+setup keeps one at a time (its lane chunks differ in batch).  A capture or
+replay that fails raises.  The host loop (device_gcr) stays for tensors on
+the CPU, for any mesh (its collectives cannot be captured) and for the
+K-cycle GCR and the fine inner restart, which have a preconditioner inside.
 """
 
 from __future__ import annotations
@@ -81,19 +92,23 @@ import torch
 
 from ..geometry import Geometry
 from ..operators import fast
-from ..operators.stencil import (ODD, CoarseStencilSoA, WilsonStencilSoA, dense_inverse,
-                                 dense_schur_inverse, dense_schur_solve, dense_solve, schur,
+from ..operators.stencil import (CoarseStencilSoA, WilsonStencilSoA, dense_inverse,
+                                 dense_schur_inverse, dense_schur_solve, dense_solve,
                                  schur_even_indices, shift_stencil)
 from ..operators.wilson import WilsonOperator
 from ..parallel import comm
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
+from ..solvers.cuda_graph import CudaGraph
 from ..solvers.device_gmres import device_gcr
+from .coarsest import COUNTER_DTYPE, CoarsestGraph, coarsest_gcr
 from .galerkin import build_coarse_blocks, gather_blocks
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
 
-COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
+# devices whose coarsest GCR runs as a CUDA graph, and the graph class
+GRAPH_DEVICES = ("cuda",)
+GRAPH_CAPTURE = CudaGraph
 # the setup's memory estimate (_lane_bytes, _setup_chunk): fields of one
 # lane a level holds at once in a cycle (SAP, restriction, GCR temporaries),
 # fields of one basis column of a Galerkin build (the basis field, its
@@ -164,6 +179,8 @@ class MGLevel:
     # coarsest_direct: the inverse [1, n, n], or (Schur inverse, even indices)
     dense_inv: Optional[object] = None
     block_inv: Optional[torch.Tensor] = None   # [nblocks, m, m] (smoother_direct)
+    # the coarsest GCR's CUDA graphs by (batch, field dtype, block dtype)
+    graphs: dict = dataclasses.field(default_factory=dict)
 
     @property
     def is_coarsest(self):
@@ -234,6 +251,7 @@ class Multigrid:
         self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0,
                       "coarsest_inverse_applies": 0.0}
         self.build_times: dict[str, float] = {}     # seconds of each inverse build
+        self.graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
         self._defer_dense = False
         self.slim = False                           # slim_for_solve ran
         self.fine = self._build(op)
@@ -349,6 +367,7 @@ class Multigrid:
         their successors are built (the views and inverses are rebuilt at
         first use)."""
         self.require_setup("re_setup")
+        self.drop_graphs()
         lvl = level
         while lvl is not None and not lvl.is_coarsest:
             nxt = lvl.next
@@ -372,6 +391,7 @@ class Multigrid:
         are dropped, to be rebuilt at first use.  No bootstrap and no
         Galerkin build runs."""
         self.require_setup("shift_update")
+        self.drop_graphs()
         for lvl in self._levels():
             lvl.stencil = shift_stencil(lvl.stencil, delta, op)
             if lvl.smoother is not None:
@@ -398,6 +418,7 @@ class Multigrid:
         shift_update and the test-vector calls raise (require_setup)."""
         if self.slim:
             return
+        self.drop_graphs()
         self._ensure_inverses()
         for lvl in self._levels():
             lvl.test_vectors = None
@@ -438,7 +459,8 @@ class Multigrid:
     def _coarsest_solve(self, level: MGLevel, b):
         """The coarsest solve of every lane of b [B, d, V]: one product with
         the dense inverse (coarsest_direct), else odd-even Schur GCR
-        (coarse_solve_odd_even_PRECISION).  Returns (x, counters [B, 3])
+        (coarse_solve_odd_even_PRECISION), as one CUDA graph replay on a
+        card with one rank (module note).  Returns (x, counters [B, 3])
         with counters = [iterations, GCR operator applications, dense
         applies] as in the JAX package (hierarchy.py:659-699): a dense apply
         counts as one iteration and as no GCR application."""
@@ -450,22 +472,48 @@ class Multigrid:
                  else dense_solve(level.dense_inv, b))
             one = torch.tensor([1.0, 0.0, 1.0], dtype=COUNTER_DTYPE, device=b.device)
             return x, one.expand(b.shape[0], 3)
-        if self._odd_even(level):
-            b_e = s.even * (b - s.hop(s.self_inv(b, ODD)))
-            x_e, iters, _, _ = device_gcr(lambda v: schur(s, v), b_e, m=cfg.coarse_iter,
-                                          tol=cfg.coarse_tol,
-                                          n_restarts=cfg.coarse_restart,
-                                          allsum=s.allsum)
-            x_e = s.even * x_e
-            x = x_e + s.self_inv(b - s.hop(x_e), ODD)
-        else:
-            x, iters, _, _ = device_gcr(s.full_op, b, m=cfg.coarse_iter,
-                                        tol=cfg.coarse_tol,
-                                        n_restarts=cfg.coarse_restart,
-                                        allsum=s.allsum)
-        iters = iters.to(COUNTER_DTYPE)
-        return x, torch.stack([iters, iters + cfg.coarse_restart, torch.zeros_like(iters)],
-                              dim=1)
+        if self.uses_graphs(b):
+            self.graph_stats["replays"] += 1
+            return self._coarsest_graph(level, s, b.shape[0])(b)
+        return coarsest_gcr(s, b, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
+                            self._odd_even(level))
+
+    def uses_graphs(self, b) -> bool:
+        """Whether the coarsest GCR of lanes b runs as a CUDA graph: on a
+        card (GRAPH_DEVICES) with one rank."""
+        return self.cfg.mesh is None and b.device.type in GRAPH_DEVICES
+
+    def _coarsest_graph(self, level: MGLevel, s, B: int) -> CoarsestGraph:
+        """The level's graph of the coarsest GCR for B lanes on stencil s
+        (its cycle view), captured at first use; a level whose stencil is
+        not the one its graphs were captured from drops them first, and a
+        setup keeps one graph at a time."""
+        cfg = self.cfg
+        key = (B, s.dtype, s.Pk.dtype)
+        g = level.graphs.get(key)
+        if any(h.stencil is not s for h in level.graphs.values()):
+            self.drop_graphs([level])
+            g = None
+        if g is None:
+            if self._defer_dense:
+                self.drop_graphs([level])
+            g = level.graphs[key] = CoarsestGraph(
+                s, B, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
+                self._odd_even(level), capture=GRAPH_CAPTURE)
+            self.graph_stats["captures"] += 1
+            self.graph_stats["capture_seconds"] += g.graph.capture_seconds
+        return g
+
+    def drop_graphs(self, levels=None):
+        """Free the coarsest-GCR graphs of `levels` (default: all)."""
+        for lvl in self._levels() if levels is None else levels:
+            for g in lvl.graphs.values():
+                g.close()
+            lvl.graphs = {}
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory the captures of the graphs held now reserved."""
+        return sum(g.graph.pool_bytes for lvl in self._levels() for g in lvl.graphs.values())
 
     def _odd_even(self, level: MGLevel) -> bool:
         """Whether the coarsest level is solved through its Schur complement."""
@@ -641,6 +689,7 @@ class Multigrid:
             self._inv_iter_fcycle(self.fine, it)
         finally:
             self._defer_dense = False
+            self.drop_graphs()
 
     def twolevel_extension_setup(self, setup_iter: Optional[int] = None):
         """Interpolation 1 (inv_iter_2lvl_extension_setup_PRECISION,
@@ -659,6 +708,7 @@ class Multigrid:
             self._inv_iter_2lvl(self.fine, it)
         finally:
             self._defer_dense = False
+            self.drop_graphs()
 
     def _inv_iter_2lvl(self, level: MGLevel, setup_iter: int):
         for _ in range(setup_iter):

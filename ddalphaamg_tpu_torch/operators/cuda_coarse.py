@@ -14,7 +14,9 @@ Each entry point holds two kernels (csrc/coarse.cu): one for a single
 right-hand side and one for a batch of them.  The C launcher picks one by
 the batch and the lattice size; `kernel="batch1"` or `kernel="multi"` names
 one instead (the kernel tests and the probe script run both on every
-shape; the port never does).
+shape; the port never does).  A call while a CUDA graph is captured
+(the coarsest GCR, mg/coarsest.py) records its launch into the graph
+instead of counting it (kernels.launched).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def coarse_apply(blocks, v, lattice, terms=(0, 9), mask_block=None,
     out = torch.empty_like(v)
     mb = tuple(mask_block) if mask_block is not None else (0, 0, 0, 0)
     fn = getattr(kernels.lib(), f"ddaamg_coarse_{inst}")
-    kernels.KERNELS["K4-bf16" if inst == "bf16" else "K4"].launches += 1
+    kernels.launched("K4-bf16" if inst == "bf16" else "K4")
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(), d, k0, k1,
             *lattice, *mb, -1 if parity is None else int(parity),
             int(parity_offset) & 1, batch, _REGIME[kernel], kernels.stream_ptr(v.device))
@@ -110,7 +112,7 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9), kernel=None):
     none = (None, None)
     out = torch.empty_like(v)
     fn = getattr(kernels.lib(), f"ddaamg_coarse_halo_{inst}")
-    kernels.KERNELS["K5-bf16" if inst == "bf16" else "K5"].launches += 1
+    kernels.launched("K5-bf16" if inst == "bf16" else "K5")
     rc = fn(out.data_ptr(), v.data_ptr(), blocks.data_ptr(),
             *(p for mu in range(4) for p in ptr.get(mu, none)), d, *terms, *lattice, batch,
             _REGIME[kernel], kernels.stream_ptr(v.device))

@@ -119,14 +119,14 @@ def matvec(A, x, blocks=None):
     xr, yr = x.reshape(-1, nb, m), y.reshape(-1, nb, m)
     stream = kernels.stream_ptr(x.device)
     if xr.shape[0] == 1:
-        kernels.KERNELS["K6"].launches += 1
+        kernels.launched("K6")
         rc = kernels.lib().ddaamg_dense_bf16(y.data_ptr(), x.data_ptr(), A.data_ptr(), bl,
                                              nb, m, nc, stream)
         kernels.check(rc, "dense bf16 matvec")
         return y
     for r0 in range(0, xr.shape[0], MRHS_MAX):
         xc, yc = xr[r0:r0 + MRHS_MAX], yr[r0:r0 + MRHS_MAX]
-        kernels.KERNELS["K6"].launches += 1
+        kernels.launched("K6")
         if xc.shape[0] == 1:    # a last single right-hand side: the batch-1 kernel
             rc = kernels.lib().ddaamg_dense_bf16(yc.data_ptr(), xc.data_ptr(), A.data_ptr(),
                                                  bl, nb, m, nc, stream)

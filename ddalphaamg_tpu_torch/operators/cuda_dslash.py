@@ -68,7 +68,7 @@ def _launch_dslash(links, cdiag, coff, phi, lattice, with_clover: bool,
     par = _parity_args(lattice, parity, parity_offset)
     out = torch.empty_like(phi)
     fn = getattr(kernels.lib(), f"ddaamg_dslash_{_SUFFIX[phi.dtype]}")
-    kernels.KERNELS["K1" if with_clover else "K2"].launches += 1
+    kernels.launched("K1" if with_clover else "K2")
     rc = fn(out.data_ptr(), phi.data_ptr(), links.data_ptr(),
             cdiag.data_ptr() if with_clover else None,
             coff.data_ptr() if with_clover else None,
@@ -116,7 +116,7 @@ def clover(cdiag, coff, phi, lattice, parity=None, parity_offset: int = 0,
                          f"hold {columns} sites")
     out = torch.empty_like(phi)
     fn = getattr(kernels.lib(), f"ddaamg_clover_{_SUFFIX[phi.dtype]}")
-    kernels.KERNELS["K3"].launches += 1
+    kernels.launched("K3")
     rc = fn(out.data_ptr(), phi.data_ptr(), cdiag.data_ptr(), coff.data_ptr(),
             *lattice, batch, *par, int(compact), kernels.stream_ptr(phi.device))
     kernels.check(rc, "clover")

@@ -105,7 +105,8 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_coarse.coarse_apply_halo(coarse.compress(blocks), v, lat, {1: (face, face)})
     cuda_dense.matvec(coarse.compress(blocks[0, None, :, :, 0]), v[None, :, 0])
     assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
-    assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6"}
+    assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6",
+                                    "G"}
 
 
 def test_cuda_request_never_runs_on_cpu():

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels K1-K6 (K2 and K3 with a parity and the
 compact odd-site clover storage; K4 and K5 with f32, f64 and bf16
-blocks) against their plain PyTorch versions on a card, and small solves
-through them.  Every test here needs a CUDA
+blocks) against their plain PyTorch versions on a card, small solves
+through them, and the coarsest GCR as a CUDA graph (mg/coarsest.py)
+against the host loop.  Every test here needs a CUDA
 device and skips without one.  The file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -13,8 +14,10 @@ import pytest
 import torch
 
 from ddalphaamg_tpu_torch import api, config, kernels
+from ddalphaamg_tpu_torch.geometry import Geometry
+from ddalphaamg_tpu_torch.mg.coarsest import CoarsestGraph, coarsest_gcr
 from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash, fast
-from ddalphaamg_tpu_torch.operators.stencil import ODD
+from ddalphaamg_tpu_torch.operators.stencil import ODD, CoarseStencilSoA
 
 torch.set_num_threads(1)
 
@@ -494,3 +497,79 @@ def test_small_solve_with_the_cuda_defaults_runs_through_the_kernels(cuda):
     assert info.inner_restart_cap == 50 and info.inner_tol_clip >= 1e-5
     counts = kernels.counts()
     assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K4-bf16", "K6")), counts
+
+
+def _coarsest_stencil(lat, d, gen, device, bf16=False, hop=0.023):
+    """A random coarse stencil on the card, made there: self blocks I plus
+    complex normal noise (variance 2) of 0.05, hops of `hop` (~10 GCR
+    iterations to 5e-2 at 4^4, d = 56); its bf16 view with bf16."""
+    V = int(np.prod(lat))
+    Pk = _cplx((9, d, d, V), gen, torch.complex64, device) * np.sqrt(2)
+    Pk[0] *= 0.05
+    Pk[0] += torch.eye(d, dtype=Pk.dtype, device=device)[:, :, None]
+    Pk[1:] *= hop
+    s = CoarseStencilSoA.from_blocks(Pk, Geometry(lat, (2, 2, 2, 2)))
+    return s.compress() if bf16 else s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lat, batch, bf16, m", [
+    ((4, 4, 4, 4), 1, False, 100), ((4, 4, 4, 4), 28, False, 100),
+    ((4, 4, 4, 4), 28, False, 8), ((8, 8, 8, 8), 1, True, 100)])
+def test_coarsest_graph_matches_the_host_loop(cuda, lat, batch, bf16, m):
+    """rough16's coarsest shapes (4^4, d = 56, batch 1 and 28, and m = 8
+    for restarts that stop early) and rough32's (8^4 with bf16 blocks): one
+    replay gives the host loop's x, counters and K4 / K4-bf16 launches; the
+    capture launches nothing, and a second replay on other lanes agrees
+    too.  Lane 1 of a batch is zero."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    s = _coarsest_stencil(lat, 56, gen, cuda, bf16)
+    key = "K4-bf16" if bf16 else "K4"
+    args = (m, 5e-2, 5, True)
+    graph = None
+    for _ in range(2):
+        b = _cplx((batch, *s.field_shape), gen, torch.complex64, cuda)
+        if batch > 1:
+            b[1] = 0
+        kernels.reset_counts()
+        x0, c0 = coarsest_gcr(s, b, *args)
+        host = kernels.counts()[key]
+        if graph is None:
+            graph = CoarsestGraph(s, batch, *args)
+            assert kernels.counts()[key] == host
+        kernels.reset_counts()
+        x1, c1 = graph(b)
+        assert kernels.counts()[key] == host > 0
+        assert torch.equal(c1, c0) and c0[:, 0].max() > 0
+        assert torch.equal(x1, x0) or _rel(x1, x0) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_coarsest_graphs_follow_the_hierarchy(cuda):
+    """A solve with the options off runs the coarsest GCR as graphs; after
+    shift_update the next replay uses the shifted stencil and agrees with
+    the host loop; the setup leaves no graph behind."""
+    p = config.parse_ini(SMALL + "coarse block bf16: 0\ncoarsest direct: 0\n"
+                                 "smoother direct: 0\n")
+    s = api.Solver(p, device=cuda)
+    s.set_conf(_unitary_links((8, 8, 8, 8), 4))
+    s.setup()
+    mg = s.mg
+    lvl = mg._levels()[-1]
+    assert not lvl.graphs and mg.graph_stats["captures"] > 0
+    rhs = config.make_rhs("ones", s.lattice)
+    x, info = s.solve(rhs)
+    assert info.converged and list(lvl.graphs) == [(1, torch.complex64, torch.complex64)]
+    old = lvl.stencil
+    s.shift_update(p.m0 + 0.01)
+    assert not lvl.graphs and lvl.stencil is not old
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b = _cplx((1, *lvl.stencil.field_shape), gen, torch.complex64, cuda)
+    x1, c1 = mg._coarsest_solve(lvl, b)
+    assert lvl.graphs[(1, torch.complex64, torch.complex64)].stencil is lvl.stencil
+    cfg = mg.cfg
+    x0, c0 = coarsest_gcr(lvl.stencil, b, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
+                          mg._odd_even(lvl))
+    assert torch.equal(c1, c0) and (torch.equal(x1, x0) or _rel(x1, x0) <= 1e-6)
+    x2, info2 = s.solve(rhs)
+    assert info2.converged and s.true_residual(x2, rhs) < 1e-10
