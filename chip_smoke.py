@@ -65,17 +65,23 @@ Phases, one result line each (or a few), in order:
               the tensor-core kernel, one read of the matrix, whose bound
               counts the exact split's 3 x 8 nc m^2 R operations at the
               bf16 tensor-core rate, 989 TFLOP/s), its library call
-              [nc, m, m] @ [nc, m, 12]
+              [nc, m, m] @ [nc, m, 12]; K7, the Gram-Schmidt with its row j
+              read from the device (K7_CASES: the fine GCR's 16^4 x 12 at
+              m = 50, the K-cycle's 8^4 d = 56 at m = 5, the coarsest 4^4 and
+              8^4 d = 56 at m = 100, batch 1 and 12, complex64, and one
+              complex128 row), its library call the j-row torch products
+              (cuBLAS), its bound (2j + 4) n elements a lane
   3b. graph   the coarsest GCR (mg/coarsest.py) as one CUDA graph replay
-              ("G": WHILE / IF nodes, csrc/graph.cu) against the host loop
-              on random coarse stencils at rough16's coarsest shapes (4^4,
-              d = 56, batch 1 and 28 with a zero lane) and rough32's (8^4,
-              bf16 blocks, batch 1), rough16's coarse-solve parameters:
-              equal counters and K4 / K4-bf16 launches, x bit-equal or
-              within 1e-6; each way's time a call (CUDA events), the
-              capture's seconds and bodies, the graph pool's bytes, and the
-              least time of the call's work (its K4 applies and vector
-              work)
+              ("G": one-body WHILE loops with a device-side index,
+              csrc/graph.cu) against the host loop on random coarse
+              stencils at rough16's coarsest shapes (4^4, d = 56, batch 1
+              and 28 with a zero lane) and rough32's (8^4, bf16 blocks,
+              batch 1), rough16's coarse-solve parameters: equal counters
+              and K4 / K4-bf16 launches, x bit-equal or within 1e-6; each
+              way's time a call (CUDA events) beside PR 13's nested-IF
+              chain, the capture's seconds and loop bodies, the graph
+              pool's bytes, and the least time of the call's work (its K4
+              applies and vector work)
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
               solve of a right-hand side of ones, exact relative residual
@@ -84,18 +90,30 @@ Phases, one result line each (or a few), in order:
               that run (K1-K4 must be > 0) and in its setup (the bootstrap
               runs the cycles of a level's 28 test vectors as one batch);
               then a second, warm solve of the same right-hand side, timed
-              for phase 7; the coarsest-GCR graphs' captures, replays and
-              pools, and a third warm solve profiled (torch.profiler:
-              wall time, device busy time and its share of the profiled
-              and of the unprofiled warm solve, device time by kernel, and
-              the graph replays' device time from CUDA events around them)
+              for phase 7; the graphs' captures (the setup's beside PR
+              13's), replays and pools, and the warm solve profiled twice
+              (torch.profiler: wall time, device busy time and its share of
+              the profiled and of the unprofiled warm solve, device time by
+              kernel, and the graph replays' device time from CUDA events
+              around them), with every GCR driven from the host (before)
+              and as the device programs (after)
   4b. multi   Solver.solve_multi of the 12 spin-colour point sources at the
               origin with phase 4's setup: every lane's exact relres
               (complex128) < 1e-10 in <= 12 outer iterations; lanes 0 and
               11, each solved alone by solve, within 1 iteration of their
               lanes; the wall time of the batch and of the two single
               solves, and the batch's launch counts; a profiled solve_multi
-              as in phase 4
+              before and after as in phase 4
+  4b2. inner-graph  on phase 4's hierarchy (and, in phases 7 and 9, on
+              theirs at batch 1): from the same r (ones at batch 1, the 12
+              point sources at batch 12) the inner restart
+              (Multigrid.inner_restart at the solve's GCR length, rel_tol
+              1e-5) and the cycle (Multigrid.__call__), each once with
+              host loops and once as one replay of its device program
+              (mg/programs.py: the fine GCR with the whole cycle inside,
+              every GCR a one-body loop): bit-equal z / x and counters,
+              every kernel's launches within 0.1 %, the ms of each, the
+              capture's seconds and loop bodies, the pool's bytes
   4c. methods (run after phase 4b, on phase 4's solver for the API runs)
               the other methods and setups on rough16 at full size, the
               ini otherwise, each run with its outer iterations, exact
@@ -163,8 +181,10 @@ Phases, one result line each (or a few), in order:
               relres < 1e-10 in <= 12 and <= phase 4 + 2 outer iterations,
               K4-bf16 and K6 launched, and no coarsest GCR iteration in the
               solve; then K6's device time in a third, profiled warm solve
-              (torch.profiler's kernel events, their count held to the
-              wrapper's launches)
+              (torch.profiler's kernel events with host loops, their count
+              held to the wrapper's launches); the warm solve profiled
+              before and after as in phase 4, and phase "inner-graph" at
+              batch 1
   7b. multi-direct  phase 4b with phase 7's setup (the options on: K6 over
               12 right-hand sides, K4-bf16 at batch 12), and K6's device
               time in one more, profiled solve_multi
@@ -177,7 +197,8 @@ Phases, one result line each (or a few), in order:
               16,384), direct block solves off; setup, a solve and a warm
               solve (beside phase 4's and phase 7's), the inner GCR's cap and
               the last inner clip; exact relres < 1e-10 in <= 12 and <= phase
-              4 + 2 outer iterations
+              4 + 2 outer iterations; the warm solve profiled before and
+              after as in phase 4, and phase "inner-graph" at batch 1
  10. rough32  the configuration "rough32" (rough32_params): a rough SU(3)
               field at 32^4 from tools.rough_su3(seed 0) made on the card
               (the numpy draws, the projections on the card; phase 3 made
@@ -189,8 +210,8 @@ Phases, one result line each (or a few), in order:
               iterations, exact relres < 1e-10 (complex128), the options
               chosen (bf16 on, coarsest direct off: n = 229,376), cap and
               clip, <= 16 outer iterations, the launches by kernel, the
-              coarsest-GCR graphs and a profiled warm solve (as in phase
-              4); then every
+              graphs (the setup's captures beside PR 13's) and a profiled
+              warm solve (as in phase 4); then every
               other shape of
               K1-K4 that set_conf, the setup (its lane chunks follow the
               card's free memory) and the cold solve launched at 32^4 and
@@ -199,7 +220,7 @@ Phases, one result line each (or a few), in order:
               rough32 did not launch
 
 The second-to-last lines are a JSON summary of the kernels (launches of
-K1-K4 and G (graph replays) from phase 4, K5 from phase 5 (phase 5b's
+K1-K4, K7 and G (graph replays) from phase 4, K5 from phase 5 (phase 5b's
 under "launches_by_path"), K4-bf16 and K6 from phase 7, K5-bf16
 from phase 8, and under "launches_by_path" those of every path run, phases
 9 and 10 included; the
@@ -245,24 +266,39 @@ ROUGH32 = (32, 32, 32, 32)
 # phase "graph": the coarsest shapes of rough16 (4^4, d = 56, one lane and
 # the setup's 28) and of rough32 (8^4 with bf16 blocks, one lane)
 GRAPH_CASES = (((4, 4, 4, 4), 1, False), ((4, 4, 4, 4), 28, False), ((8, 8, 8, 8), 1, True))
+# PR 13's times of these calls as chains of 100 nested IF nodes (PERF.md)
+CHAIN_MS = {((4, 4, 4, 4), 1): 1.9623, ((4, 4, 4, 4), 28): 5.6722, ((8, 8, 8, 8), 1): 6.7616}
+# phase 3's K7 cases: (label, n, m, rows j, batches, dtype) of the GCRs of the
+# paths: rough16's fine GCR (16^4 x 12, m = 50), its K-cycle (8^4, d = 56,
+# m = 5), the coarsest GCRs of rough16 and rough32 (4^4 / 8^4, d = 56,
+# m = 100), and the fine GCR in complex128 (mixed precision 0)
+K7_CASES = (("16^4 x 12 (fine GCR)", 16**4 * 12, 50, (1, 10, 49), (1, 12), torch.complex64),
+            ("8^4 d=56 (K-cycle)", 8**4 * 56, 5, (1, 4), (1, 12), torch.complex64),
+            ("4^4 d=56 (coarsest)", 4**4 * 56, 100, (1, 50, 99), (1, 12), torch.complex64),
+            ("8^4 d=56 (coarsest, rough32)", 8**4 * 56, 100, (1, 50, 99), (1, 12),
+             torch.complex64),
+            ("16^4 x 12 (fine GCR)", 16**4 * 12, 50, (10,), (1,), torch.complex128))
 # K1 (csrc/dslash.cu's dslash kernels with the clover), K2 (without), K3,
-# K6 (csrc/dense.cu) and the coarse kernels K4 / K4-bf16 (csrc/coarse.cu) by
+# K6 (csrc/dense.cu), the coarse kernels K4 / K4-bf16 (csrc/coarse.cu), K7's
+# four passes (csrc/gcr.cu) and the graphs' loop kernels (csrc/graph.cu) by
 # the names of their instances, in the profiler's kernel events
 KERNEL_EVENTS = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true"),
                  "K2": re.compile(r"dslash_(mrhs_)?kernel<(float|double), false"),
                  "K3": re.compile(r"clover_kernel<"),
                  "K4": re.compile(r"coarse_(b1|mrhs)_kernel"),
-                 "K6": re.compile(r"dense_bf16")}
-PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "G"),
-                "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
-                "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "G"),
+                 "K6": re.compile(r"dense_bf16"),
+                 "K7": re.compile(r"gs_(dots|hsum|update|scale)"),
+                 "G loops": re.compile(r"loop_(start|next)_kernel")}
+PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "K7", "G"),
+                "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
+                "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "K7", "G"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5"),
                 "grid4d": ("K1", "K2", "K3", "K4", "K5"),
-                "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6"),
+                "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
                 "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6"),
-                "multi": ("K1", "K2", "K3", "K4", "G"),
-                "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6"),
-                "library": ("K1", "K2", "K3", "K4")}
+                "multi": ("K1", "K2", "K3", "K4", "K7", "G"),
+                "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6", "K7", "G"),
+                "library": ("K1", "K2", "K3", "K4", "K7", "G")}
 
 
 def fail(msg):
@@ -888,7 +924,56 @@ def check_kernels(results, U32):
         del Pk, Pk16
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
     check_dense_kernel(results, gen, d, lat)
+    check_gram_schmidt(results, gen)
     check_rough32_kernels(results, gen, U32, params.m0, params.csw, ROUGH32_SHAPES)
+
+
+def check_gram_schmidt(results, gen):
+    """K7 (operators/cuda_gcr.py) against its plain version (the masked
+    products over all m rows) at the GCR shapes of the paths (K7_CASES),
+    batch 1 and 12: row j of random bases whose rows below j are filled
+    and the rest zero; the library call is the j-row torch Gram-Schmidt
+    (cuBLAS products, solvers/device_gmres.orthonormalize on a slab, with
+    the sum over the ranks the identity).  Bound: (2j + 4) n elements a
+    lane (the rows below j of W and Q, w, q, row j of W and Q) over
+    3.35 TB/s; the line also gives the (3j + 4) n of a W that L2 does not
+    keep between the passes."""
+    from ddalphaamg_tpu_torch.operators import cuda_gcr
+    from ddalphaamg_tpu_torch.solvers import device_gmres
+
+    for label, n, m, rows, batches, dtype in K7_CASES:
+        for B in batches:
+            W = torch.zeros((B, m, n), dtype=dtype, device="cuda")
+            Q = torch.zeros_like(W)
+            w = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
+            q = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
+            filled = 0
+            for j in rows:
+                W[:, filled:j] = torch.randn((B, j - filled, n), generator=gen, dtype=dtype,
+                                             device="cuda") / math.sqrt(n)
+                Q[:, filled:j] = torch.randn((B, j - filled, n), generator=gen, dtype=dtype,
+                                             device="cuda") / math.sqrt(n)
+                filled = j
+                jt = torch.tensor(j, device="cuda")
+                esize = W.element_size()
+                work = ((2 * j + 4) * n * B * esize, 24 * j * n * B)
+                tag = "c64" if dtype == torch.complex64 else "c128"
+                name = f"K7 {label} {tag} m={m} j={j} batch {B}"
+                qo, qp = (cuda_gcr.orthonormalize(W, Q, jt, w, q)[1],
+                          cuda_gcr.orthonormalize_plain(W, Q, jt, w, q)[1])
+                q_rel = float((qo - qp).abs().max() / qp.abs().max())
+                if q_rel > TOL[dtype]:
+                    fail(f"{name}: q differs from the plain version by {q_rel:.3e}")
+                compare(results, "K7", name,
+                        lambda: cuda_gcr.orthonormalize(W, Q, jt, w, q)[0],
+                        lambda: cuda_gcr.orthonormalize_plain(W, Q, jt, w, q)[0], dtype, work,
+                        lambda: device_gmres.orthonormalize(W, Q, j, w, q, allsum=lambda a: a)[0])
+                case = results["K7"]["cases"][-1]
+                cold = 1e3 * (3 * j + 4) * n * B * esize / MEM_BYTES_PER_S
+                print(f"    {name}: bound with W read twice {cold:.4f} ms "
+                      f"({100 * cold / case['ms']:.1f} %), q rel err {q_rel:.3e}", flush=True)
+            del W, Q
+            torch.cuda.empty_cache()
 
 
 def check_halo_kernels(results, gen, glat, d):
@@ -1113,8 +1198,9 @@ def graph_path(results):
         case = results["G"]["cases"][-1]
         phase("graph", t0, f"{label}: x {'bit-equal' if equal else f'within {rel:.2e}'}, "
               f"{key} {host[key]} launches either way; a call: host loop "
-              f"{case['plain_ms']:.4f} ms, graph {case['ms']:.4f} ms; capture {capture:.3f} s "
-              f"({graph.graph.trips_captured} iteration bodies), pool "
+              f"{case['plain_ms']:.4f} ms, graph {case['ms']:.4f} ms (one-body loops; PR 13's "
+              f"nested IF chain {CHAIN_MS[(lat, B)]} ms, H100 80GB HBM3 700 W); capture "
+              f"{capture:.3f} s ({len(graph.graph.loops)} loop bodies), pool "
               f"{graph.graph.pool_bytes / 2**20:.1f} MiB")
         graph.close()
 
@@ -1137,6 +1223,7 @@ def main_path():
     at_setup = kernels.counts()
     phase("solve", t0, f"setup {status.setup_time:.3f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    graph_stats("solve", t0, solver, " of the setup", "13 captures, 1.07-1.75 s")
     phase("solve", t0, "launches in the setup (a level's test-vector cycles as one "
           "batch) " + ", ".join(f"{k} {n}" for k, n in at_setup.items()))
     rhs = config.make_rhs("ones", solver.lattice)
@@ -1162,17 +1249,105 @@ def main_path():
     if warm.iterations != info.iterations:
         fail(f"the warm solve took {warm.iterations} iterations, the first {info.iterations}")
     graph_stats("solve", t0, solver)
-    profiled("solve", t0, "warm solve", lambda: solver.solve(rhs), warm.solve_time)
+    before_after("solve", t0, "warm solve", lambda: solver.solve(rhs), warm.solve_time)
     return counts, info.iterations, warm.solve_time, solver
 
 
-def graph_stats(name, t0, solver):
-    """The coarsest-GCR graphs of a solver's hierarchy: captures, their
-    seconds, replays and the pools of the graphs it holds."""
+def graph_stats(name, t0, solver, what="", before=None):
+    """The graphs of a solver's hierarchy so far (`what`): captures, their
+    seconds, replays and the pools of the graphs it holds; `before`: PR
+    13's numbers to print beside them."""
     g = solver.mg.graph_stats
-    phase(name, t0, f"coarsest GCR graphs: {g['captures']} captures "
+    phase(name, t0, f"graphs{what}: {g['captures']} captures "
           f"({g['capture_seconds']:.3f} s), {g['replays']} replays; pools held "
-          f"{solver.mg.graph_pool_bytes() / 2**20:.1f} MiB")
+          f"{solver.mg.graph_pool_bytes() / 2**20:.1f} MiB"
+          + (f" (PR 13: {before}, H100 80GB HBM3 700 W)" if before else ""))
+
+
+@contextlib.contextmanager
+def host_loops():
+    """Every GCR of the hierarchies driven from the host, no graph (the
+    plain version of the device programs; the port's execution model
+    before them)."""
+    from ddalphaamg_tpu_torch.mg import hierarchy
+
+    saved = hierarchy.GRAPH_DEVICES
+    hierarchy.GRAPH_DEVICES = ()
+    try:
+        yield
+    finally:
+        hierarchy.GRAPH_DEVICES = saved
+
+
+def before_after(name, t0, what, run, unprofiled_s):
+    """run() profiled with every GCR driven from the host (before) and as
+    the device programs (after), each beside its own unprofiled wall time
+    (the host loops' from one more run); returns both profiles."""
+    with host_loops():
+        run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        before = profiled(name, t0, f"{what}, host loops (no graph)", run, host_s)
+    after = profiled(name, t0, f"{what}, device programs", run, unprofiled_s)
+    return before, after
+
+
+def inner_graph_path(name, solver, batches=(1,)):
+    """Phase "inner-graph" on a set-up solver: for each batch B, from the
+    same r (ones, or the first B point sources) the inner restart
+    (Multigrid.inner_restart at the solve's GCR length, rel_tol 1e-5) and
+    the cycle (Multigrid.__call__), once with host loops and as one replay
+    (captured first): bit-equal z / x and counters, the launches of every
+    kernel within 0.1 %, the ms of each (CUDA events), the capture's
+    seconds and the pool's bytes."""
+    from ddalphaamg_tpu_torch import api, config, kernels
+    from ddalphaamg_tpu_torch.mg.programs import CycleGraph, InnerRestartGraph
+
+    mg = solver.mg
+    t0 = time.perf_counter()
+    for B in batches:
+        rhs = (point_sources(solver.lattice)[:B] if B > 1
+               else config.make_rhs("ones", solver.lattice)[None])
+        r = solver._scatter(rhs).to(solver._inner_dtype)
+        m = api.inner_restart_cap(solver.p.restart_length, r.shape[-2] * r.shape[-1], B,
+                                  r.device)
+        tol = torch.full((B,), 1e-5, dtype=torch.float64, device=r.device)
+        on = torch.ones(B, dtype=torch.bool, device=r.device)
+        runs = (("inner restart", InnerRestartGraph, m,
+                 lambda: mg.inner_restart(r, tol, m=m, active=on)[0]),
+                ("cycle", CycleGraph, 0, lambda: mg(r)))
+        for what, cls, mm, run in runs:
+            def once():
+                before = dict(mg.stats)
+                kernels.reset_counts()
+                out = run()
+                torch.cuda.synchronize()
+                return out, kernels.counts(), [mg.stats[k] - before[k] for k in before]
+
+            with host_loops():
+                zh, host, ch = once()
+            mg.drop_programs()
+            once()                              # the capture and a first replay
+            g = mg.programs[(cls.__name__, B, mm, r.dtype)]
+            zg, got, cg = once()
+            off = {k: (got[k], host[k]) for k in host
+                   if k != "G" and abs(got[k] - host[k]) > 1e-3 * host[k]}
+            label = f"{what} batch {B}" + (f" (m {mm})" if mm else "")
+            if not torch.equal(zg, zh) or cg != ch or off or got["G"] != 1:
+                rel = float((zg - zh).abs().max() / zh.abs().max())
+                fail(f"{name}: {label}: the replay differs from the host loops (relative "
+                     f"{rel:.3e}, counters {cg} / {ch}, launches {off}, replays {got['G']})")
+            with host_loops():
+                host_ms = cuda_ms(run, reps=3)
+            ms = cuda_ms(run, reps=5)
+            phase(name, t0, f"{label}: bit-equal, counters {ch} and launches "
+                  f"{as_text({k: n for k, n in host.items() if n and k != 'G'})} either way; "
+                  f"host loops {host_ms:.3f} ms, one replay {ms:.3f} ms; capture "
+                  f"{g.graph.capture_seconds:.3f} s ({len(g.graph.loops)} loop bodies), pool "
+                  f"{g.graph.pool_bytes / 2**20:.1f} MiB")
 
 
 def point_sources(lattice):
@@ -1223,19 +1398,22 @@ def multi_path(name, solver, k6_ms=None):
                  f"{one.iterations} alone")
     phase(name, t0, f"batch of {len(infos)} {batch:.3f} s against {sum(singles) / 2:.3f} s "
           f"a single solve ({len(infos)} singles ~ {len(infos) * sum(singles) / 2:.3f} s)")
+    graph_stats(name, t0, solver)
     if k6_ms is not None:
         k6_ms[name] = k6_profiled(name, t0, "solve_multi", lambda: solver.solve_multi(rhs))
     else:
-        graph_stats(name, t0, solver)
-        profiled(name, t0, "solve_multi", lambda: solver.solve_multi(rhs), batch)
+        before_after(name, t0, "solve_multi", lambda: solver.solve_multi(rhs), batch)
     return counts
 
 
 def k6_profiled(name, t0, what, run):
-    """K6's device time in run(), printed and returned as a dict."""
-    ms, launches = k6_device_ms(run)
-    phase(name, t0, f"K6 device time in a profiled {what}: {ms:.4f} ms over {launches} "
-          f"launches")
+    """K6's device time in run() with host loops (the profiler misses most
+    kernels inside graph replays; K6's launches are the same either way),
+    printed and returned as a dict."""
+    with host_loops():
+        ms, launches = k6_device_ms(run)
+    phase(name, t0, f"K6 device time in a profiled {what} (host loops): {ms:.4f} ms over "
+          f"{launches} launches")
     return dict(ms=ms, launches=launches)
 
 
@@ -1287,8 +1465,11 @@ def direct_path(single_iterations, single_warm, k6_ms):
         if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
             fail(f"{name}: {lab} solve ran the coarsest GCR")
     check_counts(name, counts)
+    graph_stats(name, t0, solver)
+    before_after(name, t0, "warm solve", lambda: solver.solve(rhs), info2.solve_time)
     k6_ms["direct, warm solve"] = k6_profiled(name, t0, "warm solve",
                                               lambda: solver.solve(rhs))
+    inner_graph_path("inner-graph (direct)", solver)
     return counts, warm, info.iterations, info2.solve_time, solver
 
 
@@ -1338,6 +1519,9 @@ def defaults_path(single_iterations, single_warm, direct_warm):
             fail(f"{name}: a solve did not meet relres < 1e-10 in <= {limit} iterations "
                  f"(iterations {i.iterations}, exact relres {e:.3e})")
     check_counts(name, counts)
+    graph_stats(name, t0, solver)
+    before_after(name, t0, "warm solve", lambda: solver.solve(rhs), info2.solve_time)
+    inner_graph_path("inner-graph (defaults)", solver)
     return counts
 
 
@@ -1345,7 +1529,7 @@ def device_time_by_kernel(run, lattice_of=None):
     """Device time of the card's work while run() executes, from the
     profiler's CUDA events: (wall ms, busy ms, {kind: [events, ms]}), the
     kinds KERNEL_EVENTS' and "other (torch)", graph replays' kernels among
-    them; and "(within) coarsest GCR graph replays": their count and the
+    them; and "(within) graph replays": their count and the
     device time between CUDA events recorded around each replay.  Given
     lattice_of (the lattices of the coarse_apply wrapper calls in launch
     order, filled while run() executes) and no graph replay, the coarse
@@ -1397,7 +1581,7 @@ def device_time_by_kernel(run, lattice_of=None):
             end = b
     table = dict(sorted(table.items(), key=lambda kv: -kv[1][1]))
     if spans:
-        table["(within) coarsest GCR graph replays"] = [
+        table["(within) graph replays"] = [
             len(spans), sum(a.elapsed_time(b) for a, b in spans)]
     return wall, busy / 1e3, table
 
@@ -1408,9 +1592,13 @@ def profiled(name, t0, what, run, unprofiled_s, lattice_of=None):
     same run's wall time without the profiler), and the device time by
     kind; returns them as a dict."""
     wall, busy, table = device_time_by_kernel(run, lattice_of)
+    spans = table.get("(within) graph replays", (0, 0.0))[1]
+    replays = (f"; the graph replays span {spans:.1f} ms ({100 * spans / wall:.1f} % of the "
+               f"profiled wall, {100 * spans / (1e3 * unprofiled_s):.1f} % of the unprofiled; "
+               "the profiler sees only part of the kernels inside them)" if spans else "")
     phase(name, t0, f"a profiled {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall:.1f} % of it; {100 * busy / (1e3 * unprofiled_s):.1f} % of the "
-          f"unprofiled {1e3 * unprofiled_s:.1f} ms); " + "; ".join(
+          f"unprofiled {1e3 * unprofiled_s:.1f} ms){replays}; " + "; ".join(
               f"{k} {n} events {ms:.1f} ms" for k, (n, ms) in table.items()))
     return dict(wall_ms=wall, busy_ms=busy, unprofiled_ms=1e3 * unprofiled_s, by_kind=table)
 
@@ -1458,6 +1646,7 @@ def rough32_path(U, field_s):
     finally:
         hierarchy.lane_chunk = lane_chunk
     phase(name, t0, f"setup {status.setup_time:.3f} s")
+    graph_stats(name, t0, solver, " of the setup", "22 captures, 3.2-3.7 s")
     mem("after the setup")
     for (n, lane, c), calls in sorted(chunks.items(), key=lambda kv: -kv[0][1]):
         phase(name, t0, f"setup chunk: {n} lanes of {lane / GiB:.3f} GiB -> {c} a chunk "
@@ -2008,6 +2197,7 @@ def main():
     counts, iterations, warm, solver = main_path()
     paths["solve"] = dict(counts)
     paths["multi"] = multi_path("multi", solver)
+    inner_graph_path("inner-graph", solver, (1, MULTI_RHS))
     singles = methods_path(paths, solver, k6_ms)
     library_path(paths, solver)
     del solver

@@ -323,6 +323,8 @@ class Solver:
         self.outer = WilsonStencilSoA.build(self._op_slab, self._geom(),
                                             dtype=torch.complex128, mesh=self.mesh)
         self._inner = None
+        if self.mg is not None:         # its programs captured the old operator
+            self.mg.drop_graphs()
         self.status.gauge_updates_since_setup += 1
         return average_plaquette(Ud)
 
@@ -651,8 +653,9 @@ class Solver:
         resvec = []
         apply_fine = self._profiled(self.apply_operator, "fine_op (d_plus_clover)", True)
 
-        def wrap(prec):
-            return self._profiled(prec, "preconditioner (v-cycle)")
+        def wrap(fn, name="preconditioner (v-cycle)"):
+            # the inner restart times the cycle, or its one graph replay whole
+            return self._profiled(fn, name)
 
         # the inner GCR runs on the solve operator: the hierarchy's fine level,
         # unless that was built from another operator (a set_conf since the

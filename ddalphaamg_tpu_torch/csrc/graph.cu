@@ -1,39 +1,38 @@
-// CUDA graphs with conditional nodes, captured on one stream: the device
-// program of the coarsest GCR (solvers/cuda_graph.py, mg/coarsest.py).
+// CUDA graphs with device-side loops, captured on one stream: the device
+// programs of the GCR solves (solvers/cuda_graph.py; the coarsest solve,
+// mg/coarsest.py, the inner restart and the cycle, mg/programs.py).
 //
-// It replaces no Pallas kernel.  The JAX package traces the coarsest solve
-// into one XLA program (ddalphaamg_tpu/mg/hierarchy.py:659,
-// _coarsest_solve_traced): its GCR is a lax.while_loop with an early exit
-// (ddalphaamg_tpu/solvers/device_gmres.py:138-148) inside a lax.scan over
-// restarts (:155), so no iteration goes back to the host.  Here the restarts
-// are a WHILE node and each iteration j of a restart is the body of an IF
-// node whose predicate ("some lane still goes") the previous body computes
-// on the device; the IF of iteration j + 1 sits inside the body of j, so one
-// false predicate skips the rest of the restart.
+// It replaces no Pallas kernel.  The JAX package traces a whole inner
+// restart into one XLA program (ddalphaamg_tpu/mg/hierarchy.py:806-836):
+// each GCR in it, the fine one, the K-cycle's and the coarsest, is a
+// lax.while_loop with one body and a traced iteration index j
+// (ddalphaamg_tpu/solvers/device_gmres.py:138-148), restarts a lax.scan, so
+// no iteration goes back to the host.  Here every such loop is one WHILE
+// node with one body: a one-thread kernel before the node sets j = 0 and
+// the node's condition, a one-thread kernel at the end of the body adds one
+// to j and to the loop's trip counter and sets the condition again, from
+// j < m and a device predicate (any byte of a bool array true: "some lane
+// still goes"; none for a loop of fixed length).  Loops nest (fine GCR ->
+// K-cycle restarts -> K-cycle iterations -> coarsest restarts -> coarsest
+// iterations), each body captured once, whatever its number of passes.
 //
-// What bounds a call: the bytes of its K4 applies (the blocks, read once an
-// apply) and of its Gram-Schmidt (the basis rows, read twice an iteration);
-// driven from the host, the launch rate bounded it instead (~22 launches of
-// 10-43 us host time an iteration, far above their device time).  One
-// replay issues them all with no host in between; a false predicate skips
-// the nested rest of the restart at the cost of one IF node.
+// What bounds a replay: the device work of its kernels.  Driven from the
+// host, the launch rate bounded it instead (~22 launches of 10-43 us host
+// time a GCR iteration, far above their device time); a replay issues them
+// with no host in between, at the cost of two one-thread kernels and a
+// conditional node a pass.
 //
 // Why not torch.cuda.CUDAGraph.begin_capture_to_if_node: torch 2.11 has
 // none, and where it exists it captures every conditional body on a stream
 // of its own, and the caching allocator keeps its blocks, as cuBLAS its
-// workspace, per stream, so a graph with hundreds
-// of bodies would hold hundreds of copies of the temporaries.  Here every
-// body is captured on the capture stream itself: opening a node ends the
-// stream's capture into the enclosing graph, adds the conditional node to
-// that graph after what was captured, and resumes the stream's capture into
-// the node's body graph (cudaStreamBeginCaptureToGraph); closing it resumes
-// the enclosing graph after the node.  Temporaries freed in one body are
-// then reused by the next, in stream order.
-//
-// A predicate is set by a one-thread kernel from a bool on the device
-// (cudaGraphSetConditional); a loop's count lives in an int on the device
-// that the captured program zeroes before the WHILE node.  Every function
-// returns the CUDA error code (0: success).
+// workspace, per stream.  Here every body is captured on the capture
+// stream itself: opening a loop ends the stream's capture into the
+// enclosing graph, adds the WHILE node to that graph after what was
+// captured, and resumes the stream's capture into the node's body graph
+// (cudaStreamBeginCaptureToGraph); closing it resumes the enclosing graph
+// after the node.  Temporaries freed in one body are then reused by the
+// next, in stream order.  Every function returns the CUDA error code
+// (0: success).
 
 #include <cuda_runtime.h>
 
@@ -45,9 +44,8 @@ constexpr cudaStreamCaptureMode MODE = cudaStreamCaptureModeThreadLocal;
 
 struct Open {
   cudaGraph_t graph;      // the enclosing graph
-  cudaGraphNode_t node;   // the conditional node whose body is captured
+  cudaGraphNode_t node;   // the WHILE node whose body is captured
   cudaGraphConditionalHandle handle;
-  bool loop;
 };
 
 struct Build {
@@ -57,13 +55,26 @@ struct Build {
   std::vector<Open> open;
 };
 
-__global__ void set_if_kernel(cudaGraphConditionalHandle h, const unsigned char* pred) {
-  cudaGraphSetConditional(h, *pred ? 1u : 0u);
+// some byte of go[0, n) is nonzero; no array: true
+__device__ __forceinline__ bool any_true(const unsigned char* go, int n) {
+  if (go == nullptr) return true;
+  for (int i = 0; i < n; ++i)
+    if (go[i]) return true;
+  return false;
 }
 
-__global__ void loop_again_kernel(cudaGraphConditionalHandle h, int* count, int n) {
-  *count += 1;
-  cudaGraphSetConditional(h, *count < n ? 1u : 0u);
+__global__ void loop_start_kernel(cudaGraphConditionalHandle h, long long* j,
+                                  const unsigned char* go, int ngo, int m) {
+  *j = 0;
+  cudaGraphSetConditional(h, (m > 0 && any_true(go, ngo)) ? 1u : 0u);
+}
+
+__global__ void loop_next_kernel(cudaGraphConditionalHandle h, long long* j, long long* trips,
+                                 const unsigned char* go, int ngo, int m) {
+  const long long next = *j + 1;
+  *j = next;
+  *trips += 1;
+  cudaGraphSetConditional(h, (next < m && any_true(go, ngo)) ? 1u : 0u);
 }
 
 #define TRY(call)                                \
@@ -71,30 +82,6 @@ __global__ void loop_again_kernel(cudaGraphConditionalHandle h, int* count, int 
     cudaError_t err_ = (call);                   \
     if (err_ != cudaSuccess) return (int)err_;   \
   } while (0)
-
-// ends the stream's capture into b->current, adds a conditional node of the
-// handle after everything captured so far, and captures into its body
-int open_node(Build* b, cudaStream_t s, cudaGraphConditionalHandle h,
-              cudaGraphConditionalNodeType type, bool loop) {
-  cudaStreamCaptureStatus status;
-  const cudaGraphNode_t* deps = nullptr;
-  size_t ndeps = 0;
-  TRY(cudaStreamGetCaptureInfo(s, &status, nullptr, nullptr, &deps, &ndeps));
-  if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorStreamCaptureInvalidated;
-  std::vector<cudaGraphNode_t> after(deps, deps + ndeps);
-  cudaGraph_t ended;
-  TRY(cudaStreamEndCapture(s, &ended));
-  cudaGraphNodeParams p = {};
-  p.type = cudaGraphNodeTypeConditional;
-  p.conditional.handle = h;
-  p.conditional.type = type;
-  p.conditional.size = 1;
-  cudaGraphNode_t node;
-  TRY(cudaGraphAddNode(&node, b->current, after.data(), after.size(), &p));
-  b->open.push_back({b->current, node, h, loop});
-  b->current = p.conditional.phGraph_out[0];
-  return (int)cudaStreamBeginCaptureToGraph(s, b->current, nullptr, nullptr, 0, MODE);
-}
 
 }  // namespace
 
@@ -117,39 +104,49 @@ int ddaamg_graph_begin(void** out, void* stream) {
   return 0;
 }
 
-// opens an IF node: its body runs where the bool *pred is true when the
-// graph reaches the node
-int ddaamg_graph_if(void* graph, const void* pred, void* stream) {
+// opens a loop: sets *j = 0 and runs the body captured next while
+// *j < m and some byte of go[0, ngo) is true (go null: while *j < m);
+// ddaamg_graph_loop_end closes it
+int ddaamg_graph_loop(void* graph, void* j, const void* go, int ngo, int m, void* stream) {
   auto* b = (Build*)graph;
   auto s = (cudaStream_t)stream;
   cudaGraphConditionalHandle h;
   TRY(cudaGraphConditionalHandleCreate(&h, b->current, 0, cudaGraphCondAssignDefault));
-  set_if_kernel<<<1, 1, 0, s>>>(h, (const unsigned char*)pred);
+  loop_start_kernel<<<1, 1, 0, s>>>(h, (long long*)j, (const unsigned char*)go, ngo, m);
   TRY(cudaGetLastError());
-  return open_node(b, s, h, cudaGraphCondTypeIf, false);
+  // end the capture into the enclosing graph, add the WHILE node after
+  // what was captured, and capture into its body
+  cudaStreamCaptureStatus status;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+  TRY(cudaStreamGetCaptureInfo(s, &status, nullptr, nullptr, &deps, &ndeps));
+  if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorStreamCaptureInvalidated;
+  std::vector<cudaGraphNode_t> after(deps, deps + ndeps);
+  cudaGraph_t ended;
+  TRY(cudaStreamEndCapture(s, &ended));
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = h;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  cudaGraphNode_t node;
+  TRY(cudaGraphAddNode(&node, b->current, after.data(), after.size(), &p));
+  b->open.push_back({b->current, node, h});
+  b->current = p.conditional.phGraph_out[0];
+  return (int)cudaStreamBeginCaptureToGraph(s, b->current, nullptr, nullptr, 0, MODE);
 }
 
-// opens a WHILE node whose body runs at least once (ddaamg_graph_close
-// sets how often)
-int ddaamg_graph_while(void* graph, void* stream) {
-  auto* b = (Build*)graph;
-  cudaGraphConditionalHandle h;
-  TRY(cudaGraphConditionalHandleCreate(&h, b->current, 1, cudaGraphCondAssignDefault));
-  return open_node(b, (cudaStream_t)stream, h, cudaGraphCondTypeWhile, true);
-}
-
-// closes the innermost open node; a WHILE node's body ends by counting its
-// passes in *count (zeroed by the program before the node) and runs again
-// while the count is below n
-int ddaamg_graph_close(void* graph, void* stream, void* count, int n) {
+// closes the innermost loop: its body ends by adding one to *j and to
+// *trips and goes on while *j < m and some byte of go[0, ngo) is true
+int ddaamg_graph_loop_end(void* graph, void* j, void* trips, const void* go, int ngo, int m,
+                          void* stream) {
   auto* b = (Build*)graph;
   auto s = (cudaStream_t)stream;
   if (b->open.empty()) return (int)cudaErrorInvalidValue;
   const Open o = b->open.back();
-  if (o.loop) {
-    loop_again_kernel<<<1, 1, 0, s>>>(o.handle, (int*)count, n);
-    TRY(cudaGetLastError());
-  }
+  loop_next_kernel<<<1, 1, 0, s>>>(o.handle, (long long*)j, (long long*)trips,
+                                   (const unsigned char*)go, ngo, m);
+  TRY(cudaGetLastError());
   cudaGraph_t ended;
   TRY(cudaStreamEndCapture(s, &ended));
   b->open.pop_back();

@@ -11,10 +11,11 @@ increments exactly where it launches the CUDA kernel (`launched`); a run can
 reset the counters and read them afterwards to show that it went through the
 kernels.  A wrapper called while a CUDA graph is captured (solvers/
 cuda_graph.py) launches nothing: `launched` then records the launch into the
-segment of the graph being captured (`recording`), and the graph's
-`GraphLaunches` turn its replays and its device trip counter into launches
-when the counts are next read (`counts`, `reset_counts`), so that a replay
-adds no read of the device.
+segment of the graph being captured (`recording`: the part outside its
+loops, or the body of the innermost loop being captured), and the graph's
+`GraphLaunches` turn its replays and its loops' device trip counters into
+launches when the counts are next read (`counts`, `reset_counts`), so that
+a replay adds no read of the device.
 """
 
 from __future__ import annotations
@@ -72,10 +73,16 @@ KERNELS = {
     "K6": Kernel("K6 bf16 batched matvec", "cuda", "ddalphaamg_tpu_torch/csrc/dense.cu",
                  "ddalphaamg_tpu/operators/stencil.py:710, :727 and "
                  "ddalphaamg_tpu/smoothers/sap.py:193 (XLA einsums, no pallas_call)"),
-    "G": Kernel("G coarsest GCR as one CUDA graph (WHILE / IF nodes set by its kernels)",
+    "K7": Kernel("K7 Gram-Schmidt with the row count read from the device", "cuda",
+                 "ddalphaamg_tpu_torch/csrc/gcr.cu",
+                 "ddalphaamg_tpu/solvers/device_gmres.py:111-119 (XLA einsums over all m "
+                 "rows inside the lax.while_loop, no pallas_call)"),
+    "G": Kernel("G CUDA graph replays: the coarsest GCR, the inner restart, the cycle "
+                "(one-body WHILE loops with a device-side index)",
                 "cuda", "ddalphaamg_tpu_torch/csrc/graph.cu",
-                "ddalphaamg_tpu/mg/hierarchy.py:659 (_coarsest_solve_traced: the GCR's "
-                "lax.while_loop in a lax.scan, one XLA program, no pallas_call)"),
+                "ddalphaamg_tpu/mg/hierarchy.py:659, :806-836, :792-804 (the coarsest "
+                "solve, the inner restart and the cycle as one XLA program each: "
+                "lax.while_loop, no pallas_call)"),
 }
 
 
@@ -105,15 +112,17 @@ def recording(segment: Counter):
 
 class GraphLaunches:
     """The launches of one captured graph: `per_call` kernels launched by
-    every replay, `per_trip` by every executed body of its conditional
-    nodes; `trips` is the graph's device counter of executed bodies (it
-    only grows).  Replays are counted on the host (`replayed`); the trips
-    are read when the counts are next read."""
+    every replay outside its loops, `per_loop[k]` by one pass of loop k's
+    body (outside the loops nested in it); `trips` [>= len(per_loop)] is
+    the graph's device counter of each loop's passes (it only grows).
+    Replays are counted on the host (`replayed`); the trips are read, in
+    one read, when the counts are next read."""
 
-    def __init__(self, owner, per_call: Counter, per_trip: Counter, trips):
+    def __init__(self, owner, per_call: Counter, per_loop: list, trips):
         self._owner = weakref.ref(owner)
-        self.per_call, self.per_trip, self.trips = per_call, per_trip, trips
-        self.replays = self._folded_replays = self._folded_trips = 0
+        self.per_call, self.per_loop, self.trips = per_call, per_loop, trips
+        self.replays = self._folded_replays = 0
+        self._folded_trips = [0] * len(per_loop)
 
     def replayed(self):
         self.replays += 1
@@ -121,14 +130,14 @@ class GraphLaunches:
             _graphs.append(self)
 
     def fold(self):
-        """Add the launches since the last fold to KERNELS (one read of the
-        trip counter)."""
-        trips = int(self.trips)
-        calls, bodies = self.replays - self._folded_replays, trips - self._folded_trips
+        """Add the launches since the last fold to KERNELS."""
+        trips = self.trips[:len(self.per_loop)].tolist()
+        calls = self.replays - self._folded_replays
         for key, n in self.per_call.items():
             KERNELS[key].launches += n * calls
-        for key, n in self.per_trip.items():
-            KERNELS[key].launches += n * bodies
+        for seg, now, before in zip(self.per_loop, trips, self._folded_trips):
+            for key, n in seg.items():
+                KERNELS[key].launches += n * (now - before)
         self._folded_replays, self._folded_trips = self.replays, trips
 
 
@@ -151,6 +160,7 @@ def counts() -> dict:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "ddaamg_dslash_f32": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "ddaamg_dslash_f64": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -164,10 +174,12 @@ _SIGNATURES = {
     "ddaamg_coarse_halo_bf16": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ddaamg_dense_bf16_mrhs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ddaamg_gcr_chunks": [_L],
+    "ddaamg_gcr_orthonormalize_c64": [_P] * 10 + [_I, _I, _L, _P],
+    "ddaamg_gcr_orthonormalize_c128": [_P] * 10 + [_I, _I, _L, _P],
     "ddaamg_graph_begin": [_P, _P],
-    "ddaamg_graph_if": [_P, _P, _P],
-    "ddaamg_graph_while": [_P, _P],
-    "ddaamg_graph_close": [_P, _P, _P, _I],
+    "ddaamg_graph_loop": [_P, _P, _P, _I, _I, _P],
+    "ddaamg_graph_loop_end": [_P, _P, _P, _P, _I, _I, _P],
     "ddaamg_graph_end": [_P, _P],
     "ddaamg_graph_launch": [_P, _P],
     "ddaamg_graph_destroy": [_P, _P],

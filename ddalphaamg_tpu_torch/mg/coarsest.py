@@ -13,14 +13,15 @@ the JAX package counts them.  gcr is the GCR driver: the host loop
 CoarsestGraph runs the whole of coarsest_gcr, prologue, every restart with
 its residual apply, each restart's iterations with their early exit, the
 epilogue and the counters, as one replay of one CUDA graph
-(solvers/cuda_graph.py): the restarts a WHILE node, iteration j of a restart
-the body of an IF node nested in the body of j - 1.  The right-hand side is
-copied into a static buffer, x and the counters are cloned out of static
-ones; no replay reads the device.  The graph holds the stencil it was
-captured from (the Multigrid drops it with that stencil).  A graph's launches
-per replay and per executed iteration are recorded at capture and its
-device trip counter gives the iterations (kernels.GraphLaunches), so the
-launch counts equal the host loop's.
+(solvers/cuda_graph.py): the restarts a loop, the iterations of a restart a
+loop nested in it, each with one body and a device-side iteration index,
+the program of the inner restart's nested coarsest solve (mg/programs.py).
+The right-hand side is copied into a static buffer, x and the counters are
+cloned out of static ones; no replay reads the device.  The graph holds
+the stencil it was captured from (the Multigrid drops it with that
+stencil).  Its launches per replay and per loop pass are recorded at
+capture and its loops' device trip counters give the passes
+(kernels.GraphLaunches), so the launch counts equal the host loop's.
 """
 
 from __future__ import annotations
@@ -30,12 +31,10 @@ import math
 
 import torch
 
-from .. import kernels
 from ..operators.stencil import ODD, schur
-from ..solvers.cuda_graph import CudaGraph
-from ..solvers.device_gmres import device_gcr, gcr_program
+from ..solvers.cuda_graph import CudaGraph, GraphProgram
+from ..solvers.device_gmres import COUNTER_DTYPE, device_gcr, gcr_program
 
-COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
 # fields of one lane a graph's pool holds beside its bases W and Q (the
 # state, the prologue's and epilogue's fields, one iteration's temporaries)
 POOL_FIELDS = 32
@@ -58,7 +57,7 @@ def coarsest_gcr(s, b, m: int, tol: float, n_restarts: int, odd_even: bool,
     return x, torch.stack([iters, iters + n_restarts, torch.zeros_like(iters)], dim=1)
 
 
-class CoarsestGraph:
+class CoarsestGraph(GraphProgram):
     """coarsest_gcr for B lanes on stencil s as one CUDA graph (module
     note); capture is the graph class (CudaGraph; tests give a stand-in).
     Calling it replays the graph."""
@@ -66,32 +65,18 @@ class CoarsestGraph:
     def __init__(self, s, B: int, m: int, tol: float, n_restarts: int, odd_even: bool,
                  capture=CudaGraph):
         self.stencil = s
-        dev = s.device
-        self.b = torch.zeros((B, *s.field_shape), dtype=s.dtype, device=dev)
-        self.trips = torch.zeros((), dtype=torch.long, device=dev)   # only grows
-        self.graph = capture(dev)
-        out = self._out = {}      # the program's x and counters (static once captured)
 
-        def program(ctl):
-            gcr = functools.partial(gcr_program, ctl, trips=self.trips)
-            out["x"], out["counters"] = coarsest_gcr(s, self.b, m, tol, n_restarts,
-                                                     odd_even, gcr=gcr)
+        def program(ctl, b):
+            x, counters = coarsest_gcr(s, b, m, tol, n_restarts, odd_even,
+                                       gcr=functools.partial(gcr_program, ctl))
+            return {"x": x, "counters": counters}
 
-        lane = math.prod(s.field_shape) * self.b.element_size()
-        self.graph.capture(program, need=(2 * m + POOL_FIELDS) * B * lane)
-        self.trips.zero_()      # a capture runs nothing; a stand-in may have
-        self.launches = kernels.GraphLaunches(self, self.graph.call, self.graph.trip or {},
-                                              self.trips)
+        b = torch.zeros((B, *s.field_shape), dtype=s.dtype, device=s.device)
+        lane = math.prod(s.field_shape) * b.element_size()
+        super().__init__(program, {"b": b}, s.device, need=(2 * m + POOL_FIELDS) * B * lane,
+                         capture=capture)
 
     def __call__(self, b):
         """(x, counters [B, 3]) of the lanes b [B, d, V]: one replay."""
-        self.b.copy_(b)
-        self.graph.launch()
-        self.launches.replayed()
-        return self._out["x"].clone(), self._out["counters"].clone()
-
-    def close(self):
-        """Free the graph and its memory pool (the outputs first: they live
-        in the pool)."""
-        self._out.clear()
-        self.graph.close()
+        out = super().__call__(b=b)
+        return out["x"], out["counters"]

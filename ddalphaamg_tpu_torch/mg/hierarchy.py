@@ -68,21 +68,30 @@ free memory (one chunk unless the level is large).  slim_for_solve drops
 the test vectors and the full-precision coarse stencils (their bf16 views
 stay) once the setup is done.
 
-The coarsest GCR (mg/coarsest.py).  On a card with one rank (no mesh) every
-coarsest solve that runs the GCR is one replay of a CUDA graph, the
-counterpart of the JAX package's traced coarsest solve: no read of the
-device inside it.  The level keeps one graph per (batch, field dtype, block
-dtype) and checks that its stencil is the one captured; re_setup,
-shift_update, slim_for_solve and the end of a setup drop the graphs, and a
-setup keeps one at a time (its lane chunks differ in batch).  A capture or
-replay that fails raises.  The host loop (device_gcr) stays for tensors on
-the CPU, for any mesh (its collectives cannot be captured) and for the
-K-cycle GCR and the fine inner restart, which have a preconditioner inside.
+Device programs (mg/programs.py, mg/coarsest.py).  On a card with one
+rank (no mesh; uses_graphs) every inner restart is one replay of a CUDA
+graph that holds the fine GCR with the whole cycle inside (the JAX
+package's _inner_restart_impl), and every preconditioner call
+(Multigrid.__call__, methods 1 and 3) one replay of a graph of one cycle:
+each GCR in them, the fine one, the K-cycle's and the coarsest, is one
+loop with one body and a device-side iteration index, nested, and no
+replay reads the device.  The setup's cycles stay host-driven, with each
+coarsest GCR one replay of a graph of its own (CoarsestGraph).  A level
+keeps one coarsest graph per (batch, field dtype, block dtype) and checks
+that its stencil is the one captured; the Multigrid keeps one program of
+each kind, for the last (batch, GCR length, dtype, fine operator), and
+checks by identity every stencil, interpolation, inverse and smoother it
+captured.  re_setup, shift_update, slim_for_solve, the end of a setup,
+Solver.set_conf and Solver.setup drop the graphs, and a setup keeps one at
+a time (its lane chunks differ in batch).  A capture or replay that fails
+raises.  The host loops (HostControl, device_gcr) stay for tensors on the
+CPU and for any mesh (its collectives cannot be captured).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Optional
@@ -101,14 +110,16 @@ from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_fie
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
 from ..solvers.cuda_graph import CudaGraph
-from ..solvers.device_gmres import device_gcr
-from .coarsest import COUNTER_DTYPE, CoarsestGraph, coarsest_gcr
+from ..solvers.device_gmres import COUNTER_DTYPE, HostControl, device_gcr, gcr_program
+from .coarsest import CoarsestGraph, coarsest_gcr
+from .programs import CycleGraph, InnerRestartGraph
 from .galerkin import build_coarse_blocks, gather_blocks
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
 
-# devices whose coarsest GCR runs as a CUDA graph, and the graph class
+# devices whose GCR solves run as CUDA graphs, and the graph class
 GRAPH_DEVICES = ("cuda",)
 GRAPH_CAPTURE = CudaGraph
+HOST = HostControl()        # the control of the GCRs driven from the host
 # the setup's memory estimate (_lane_bytes, _setup_chunk): fields of one
 # lane a level holds at once in a cycle (SAP, restriction, GCR temporaries),
 # fields of one basis column of a Galerkin build (the basis field, its
@@ -252,6 +263,8 @@ class Multigrid:
                       "coarsest_inverse_applies": 0.0}
         self.build_times: dict[str, float] = {}     # seconds of each inverse build
         self.graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
+        # the device programs (mg/programs.py) by (kind, batch, GCR length, dtype)
+        self.programs: dict = {}
         self._defer_dense = False
         self.slim = False                           # slim_for_solve ran
         self.fine = self._build(op)
@@ -456,31 +469,36 @@ class Multigrid:
     # cycles
     # ------------------------------------------------------------------
 
-    def _coarsest_solve(self, level: MGLevel, b):
+    def _coarsest_solve(self, level: MGLevel, b, ctl=None):
         """The coarsest solve of every lane of b [B, d, V]: one product with
         the dense inverse (coarsest_direct), else odd-even Schur GCR
-        (coarse_solve_odd_even_PRECISION), as one CUDA graph replay on a
-        card with one rank (module note).  Returns (x, counters [B, 3])
-        with counters = [iterations, GCR operator applications, dense
-        applies] as in the JAX package (hierarchy.py:659-699): a dense apply
-        counts as one iteration and as no GCR application."""
+        (coarse_solve_odd_even_PRECISION): inside a device program (ctl)
+        the program's own GCR, else one replay of the level's graph on a
+        card with one rank, else the host loop (module note).  Returns (x,
+        counters [B, 3]) with counters = [iterations, GCR operator
+        applications, dense applies] as in the JAX package
+        (hierarchy.py:659-699): a dense apply counts as one iteration and
+        as no GCR application."""
         cfg = self.cfg
         s = self._cycle_view(level)
+        args = (cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart, self._odd_even(level))
         if level.dense_inv is not None:
             # the Schur inverse is built exactly where odd-even applies
             x = (dense_schur_solve(s, *level.dense_inv, b) if self._odd_even(level)
                  else dense_solve(level.dense_inv, b))
-            one = torch.tensor([1.0, 0.0, 1.0], dtype=COUNTER_DTYPE, device=b.device)
-            return x, one.expand(b.shape[0], 3)
+            one = torch.zeros((b.shape[0], 3), dtype=COUNTER_DTYPE, device=b.device)
+            one[:, 0::2] = 1.0
+            return x, one
+        if ctl is not None:
+            return coarsest_gcr(s, b, *args, gcr=functools.partial(gcr_program, ctl))
         if self.uses_graphs(b):
             self.graph_stats["replays"] += 1
             return self._coarsest_graph(level, s, b.shape[0])(b)
-        return coarsest_gcr(s, b, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
-                            self._odd_even(level))
+        return coarsest_gcr(s, b, *args)
 
     def uses_graphs(self, b) -> bool:
-        """Whether the coarsest GCR of lanes b runs as a CUDA graph: on a
-        card (GRAPH_DEVICES) with one rank."""
+        """Whether the GCR solves of lanes b run as CUDA graphs: on a card
+        (GRAPH_DEVICES) with one rank."""
         return self.cfg.mesh is None and b.device.type in GRAPH_DEVICES
 
     def _coarsest_graph(self, level: MGLevel, s, B: int) -> CoarsestGraph:
@@ -500,12 +518,53 @@ class Multigrid:
             g = level.graphs[key] = CoarsestGraph(
                 s, B, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
                 self._odd_even(level), capture=GRAPH_CAPTURE)
-            self.graph_stats["captures"] += 1
-            self.graph_stats["capture_seconds"] += g.graph.capture_seconds
+            self._captured(g)
         return g
 
+    def _captured(self, g):
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_seconds"] += g.graph.capture_seconds
+
+    def _program(self, cls, B: int, dtype, m: int = 0, op=None):
+        """The device program cls (mg/programs.py) for B lanes, captured at
+        first use; one of a kind is kept (another batch, GCR length, dtype or
+        fine operator op replaces it), and every program is dropped first
+        where a level's stencil, interpolation, inverse or smoother it read
+        was replaced (holds, by identity)."""
+        holds = self._program_holds()
+        if any(len(g.holds) != len(holds) or any(a is not b for a, b in zip(g.holds, holds))
+               for g in self.programs.values()):
+            self.drop_programs()
+        key = (cls.__name__, B, m, dtype)
+        g = self.programs.get(key)
+        if g is None or g.op is not op:
+            # one program of a kind: its pool holds the bases (GBs at 32^4)
+            for k in [k for k in self.programs if k[0] == key[0]]:
+                self.programs.pop(k).close()
+            g = self.programs[key] = cls(self, B, dtype, m=m, op=op, holds=holds,
+                                         capture=GRAPH_CAPTURE)
+            self._captured(g)
+        self.graph_stats["replays"] += 1
+        return g
+
+    def _program_holds(self) -> tuple:
+        """What a device program reads besides its inputs and its fine
+        operator: every level's cycle stencil, interpolation, inverses and
+        smoother (the bf16 views made here, before any capture)."""
+        return tuple(obj for lvl in self._levels() for obj in (
+            self._cycle_view(lvl), lvl.P, lvl.dense_inv, lvl.block_inv, lvl.smoother))
+
+    def drop_programs(self):
+        """Free the device programs (inner restarts and cycles)."""
+        for g in self.programs.values():
+            g.close()
+        self.programs = {}
+
     def drop_graphs(self, levels=None):
-        """Free the coarsest-GCR graphs of `levels` (default: all)."""
+        """Free the coarsest-GCR graphs of `levels`, or (default) every
+        graph: those of all levels and the device programs."""
+        if levels is None:
+            self.drop_programs()
         for lvl in self._levels() if levels is None else levels:
             for g in lvl.graphs.values():
                 g.close()
@@ -513,7 +572,9 @@ class Multigrid:
 
     def graph_pool_bytes(self) -> int:
         """Device memory the captures of the graphs held now reserved."""
-        return sum(g.graph.pool_bytes for lvl in self._levels() for g in lvl.graphs.values())
+        graphs = [*self.programs.values(), *(g for lvl in self._levels()
+                                             for g in lvl.graphs.values())]
+        return sum(g.graph.pool_bytes for g in graphs)
 
     def _odd_even(self, level: MGLevel) -> bool:
         """Whether the coarsest level is solved through its Schur complement."""
@@ -582,11 +643,15 @@ class Multigrid:
             x_c = shard_field(level.stencil.mesh, x_c, level.next.geom.lattice)
         return interpolate(level.agg, level.P, x_c)
 
-    def _cycle(self, depth: int, eta, kcycle_tol: float, collect=None):
+    def _cycle(self, depth: int, eta, kcycle_tol: float, collect=None, ctl=None):
         """One preconditioning cycle at `depth` (vcycle_PRECISION) of every
         lane of eta [B, dof, V]; returns (x, counters [B, 3]).  `collect`
         receives the next level's solution of the top-level coarse
-        correction (the bootstrap's test-vector update), [B, ...]."""
+        correction (the bootstrap's test-vector update), [B, ...].  ctl:
+        the control of the device program the cycle is part of
+        (solvers/cuda_graph.py), whose loops then run its K-cycle GCR and
+        its coarsest GCR; None: driven from the host, the coarsest GCR a
+        graph of its own on a card (_coarsest_solve)."""
         cfg = self.cfg
         levels = self._levels()
         level, nxt = levels[depth], levels[depth + 1]
@@ -597,21 +662,18 @@ class Multigrid:
             r = eta if x is None else eta - s.full_op(x)
             b_c = self._restrict(level, r)
             if nxt.is_coarsest:
-                x_c, it = self._coarsest_solve(nxt, b_c)
+                x_c, it = self._coarsest_solve(nxt, b_c, ctl)
             elif cfg.kcycle:
                 def kprec(v, _d=depth + 1):
-                    return self._cycle(_d, v, kcycle_tol)
+                    return self._cycle(_d, v, kcycle_tol, ctl=ctl)
 
                 ns = self._cycle_view(nxt)
-                x_c, _, _, it = device_gcr(
-                    ns.full_op, b_c, m=cfg.kcycle_length,
-                    tol=kcycle_tol, n_restarts=cfg.kcycle_restarts, prec=kprec,
-                    allsum=ns.allsum)
+                x_c, _, _, it = gcr_program(
+                    ctl or HOST, ns.full_op, b_c, cfg.kcycle_length, kcycle_tol,
+                    n_restarts=cfg.kcycle_restarts, prec=kprec, allsum=ns.allsum, n_aux=3)
             else:
-                x_c, it = self._cycle(depth + 1, b_c, kcycle_tol,
-                                      collect=collect)
-            if it is not None:      # None: a K-cycle GCR that did no iteration
-                counters = counters + it
+                x_c, it = self._cycle(depth + 1, b_c, kcycle_tol, collect=collect, ctl=ctl)
+            counters = counters + it
             if collect is not None:
                 collect[depth + 1] = x_c
             corr = self._interpolate(level, x_c)
@@ -630,11 +692,17 @@ class Multigrid:
 
     def __call__(self, eta):
         """Depth-0 preconditioner application M(eta) of one field [dof, V]
-        or of a batch [B, dof, V] (batch 1 of the same cycle for one)."""
+        or of a batch [B, dof, V] (batch 1 of the same cycle for one): one
+        replay of the cycle's graph on a card with one rank (the JAX
+        package's one dispatch, hierarchy.py:792-804)."""
         self._ensure_inverses()
         s = self.fine.stencil
         lanes = eta.reshape(-1, *eta.shape[-2:]).to(s.dtype)
-        x, counters = self._cycle(0, lanes, self._kcycle_tol(0, self.cfg.kcycle_tol))
+        if self.uses_graphs(lanes):
+            out = self._program(CycleGraph, lanes.shape[0], lanes.dtype)(eta=lanes)
+            x, counters = out["x"], out["counters"]
+        else:
+            x, counters = self._cycle(0, lanes, self._kcycle_tol(0, self.cfg.kcycle_tol))
         self._count(counters)
         return x.reshape(eta.shape)
 
@@ -645,30 +713,53 @@ class Multigrid:
                            "coarsest_inverse_applies"), counters.sum(dim=0).tolist()):
             self.stats[key] += c
 
-    def inner_restart(self, r, rel_tol, m: int, active=None, wrap=None, op=None):
-        """One inner restart of the mixed-precision outer loop for every lane
-        of r [B, 12, V]: m iterations of flexible GCR over the fine
-        operator, preconditioned by the multigrid cycle, each lane stopped
-        once its residual falls below its rel_tol (a float or a [B]
-        tensor); lanes off in `active` [B] do not iterate.  op is the fine
-        operator of the GCR (the fine level's by default); wrap(prec), if
-        given, is what the GCR calls in place of the cycle prec (the
-        profiler's timing).  Returns (z, iterations [B]), both on the
-        device."""
-        self._ensure_inverses()
+    def inner_program(self, ctl, r, rel_tol, m: int, active=None, op=None, wrap=None):
+        """The inner restart as a program of ctl (the JAX package's
+        _inner_restart_impl, hierarchy.py:806-827): m iterations of
+        flexible GCR over op (the fine stencil's full_op by default) on
+        the lanes r [B, 12, V] in the fine dtype, preconditioned by the
+        cycle (wrap(prec), if given, in its place), each lane stopped once
+        its residual falls below its rel_tol (a float or a [B] tensor),
+        lanes off in `active` [B] frozen.  Returns (z, iterations [B],
+        counters [B, 3])."""
         s = self.fine.stencil
         ktol = self._kcycle_tol(0, self.cfg.kcycle_tol)
 
         def prec(w):
-            return self._cycle(0, w, ktol)
+            return self._cycle(0, w, ktol, ctl=ctl)
 
-        if wrap is not None:
-            prec = wrap(prec)
-        z, iters, _, counters = device_gcr(op or s.full_op, r.to(s.dtype), m=m,
-                                           tol=rel_tol, n_restarts=1, prec=prec,
-                                           allsum=s.allsum, active=active)
-        if counters is not None:
-            self._count(counters)
+        z, iters, _, counters = gcr_program(
+            ctl, op or s.full_op, r, m, rel_tol, n_restarts=1,
+            prec=prec if wrap is None else wrap(prec), allsum=s.allsum, active=active, n_aux=3)
+        return z, iters, counters
+
+    def inner_restart(self, r, rel_tol, m: int, active=None, wrap=None, op=None):
+        """One inner restart of the mixed-precision outer loop for every lane
+        of r [B, 12, V] (inner_program): one replay of its graph on a card
+        with one rank (InnerRestartGraph), else driven from the host.  op
+        is the fine operator of the GCR (the fine level's by default);
+        wrap(fn, name), if given, times fn (the profiler): driven from the
+        host the GCR calls wrap(prec) in place of the cycle prec, a replay
+        is timed whole as one item named for the inner restart.  Returns
+        (z, iterations [B]), both on the device."""
+        self._ensure_inverses()
+        r = r.to(self.fine.stencil.dtype)
+        if self.uses_graphs(r):
+            # the operator's stencil: op is a bound method, made anew at every access
+            g = self._program(InnerRestartGraph, r.shape[0], r.dtype, m=m,
+                              op=getattr(op, "__self__", op))
+
+            def replay(v):
+                return g(r=v, rel_tol=rel_tol, active=True if active is None else active)
+
+            if wrap is not None:
+                replay = wrap(replay, "inner restart (one CUDA graph replay: fine GCR and "
+                                      "cycles)")
+            out = replay(r)
+            z, iters, counters = out["z"], out["iters"], out["counters"]
+        else:
+            z, iters, counters = self.inner_program(HOST, r, rel_tol, m, active, op, wrap)
+        self._count(counters)
         return z, iters
 
     # ------------------------------------------------------------------
@@ -777,6 +868,14 @@ class Multigrid:
             field = math.prod(lvl.stencil.field_shape) * lvl.stencil.dtype.itemsize
             total += fields * field
         return total
+
+    def program_bytes(self, B: int, m: int) -> int:
+        """An estimate of the pool of a device program of B lanes with a fine
+        GCR of length m: a setup cycle's lane at depth 0 (_lane_bytes) and
+        the fine bases."""
+        s = self.fine.stencil
+        field = math.prod(s.field_shape) * s.dtype.itemsize
+        return B * (self._lane_bytes(self.fine) + 2 * m * field)
 
     def _setup_chunk(self, level: MGLevel, n: int) -> int:
         """Lanes of one setup batch of n at `level` (lane_chunk)."""

@@ -212,7 +212,7 @@ class SchwarzPreconditioner:
     solve, `cycles` sweeps, block odd-even Schur solves when odd_even.
     `colors` holds the site masks of the colors on the level's (slab's)
     sites, `blocks` the int32 block list of each (None with one color: all
-    blocks), which the direct block solves read."""
+    blocks), which the direct block solves read, checked here."""
 
     def __init__(self, stencil, block_iter: int = 4, cycles: int = 1,
                  odd_even: bool = True, scheme: str = "red_black"):
@@ -227,6 +227,11 @@ class SchwarzPreconditioner:
             for m in color_masks(stencil.global_geom, scheme))
         self.blocks = (None if len(self.colors) == 1 else
                        tuple(color_blocks(c, stencil.geom) for c in self.colors))
+        # K6 reads a list's contents from the device once (check_blocks):
+        # here, so that no captured colour step reads it
+        for listed in self.blocks or ():
+            cuda_dense.check_blocks(listed, math.prod(stencil.geom.block_grid),
+                                    stencil.device)
 
     def __call__(self, eta, cycles: int | None = None):
         return sap_smooth(self.s, self.colors, eta.to(self.s.dtype),

@@ -1,22 +1,25 @@
-"""Device programs with loops and early exits: a function written against a
-control interface (`repeat` for a loop of fixed length, `chain` for a run of
-iterations that stops at the first false predicate) runs either with its
-control flow decided on the host (HostControl: the plain version, one read
-of the device per predicate) or captured once into a CUDA graph whose WHILE
-and IF nodes decide it on the device (CudaGraph, csrc/graph.cu), replayed
-with no read of the device.
+"""Device programs with loops: a function written against a control
+interface (`loop(m, pred, body)`: body(j) for j = 0, 1, ... while j < m and
+some element of the device bool pred() holds) runs either with its control
+flow decided on the host (solvers/device_gmres.HostControl: the plain
+version, one read of the device per pass) or captured once into a CUDA
+graph whose WHILE nodes decide it on the device (CudaGraph,
+csrc/graph.cu), replayed with no read of the device.  A loop has one body
+whatever its number of passes; in a graph j is a device int64 scalar that
+the loop's own kernels count, on the host a Python int.  Loops nest.
 
 Capture rules for a captured function: every tensor that outlives a body
-(a loop pass or a chain iteration) is allocated before the body and updated
-in place, because a skipped body leaves it as it was; no body reads the
-device (no .item(), bool() or int() of a CUDA tensor, no host branch on
-device data); every kernel launches on torch's current stream, which is the
-capture stream while the function is captured.  The graph's allocations go
-to a memory pool of its own (torch.cuda.MemPool), held as long as the graph.
-That pool takes fresh device memory: while it is routed to, the caching
-allocator neither hands it the general pool's idle blocks nor frees them on
-a shortage, so a capture that needs more than the device has free empties
-the cache first.  A failed capture or launch raises.
+(a loop pass) is allocated before the body and updated in place, because a
+body is captured once and runs again on the same memory, and a skipped
+body leaves it as it was; no body reads the device (no .item(), bool() or
+int() of a CUDA tensor, no host branch on device data); a loop predicate
+keeps its storage; every kernel launches on torch's current stream, which
+is the capture stream while the function is captured.  The graph's allocations go to a memory pool of its
+own (torch.cuda.MemPool), held as long as the graph.  That pool takes fresh
+device memory: while it is routed to, the caching allocator neither hands
+it the general pool's idle blocks nor frees them on a shortage, so a
+capture that needs more than the device has free empties the cache first.
+A failed capture or launch raises.
 """
 
 from __future__ import annotations
@@ -31,32 +34,18 @@ import torch
 from .. import kernels
 
 _capture_streams: dict = {}     # one capture stream per device
-
-
-class HostControl:
-    """The plain version of a graph's control flow: every predicate is
-    read on the host."""
-
-    def repeat(self, n: int, body):
-        for _ in range(n):
-            body()
-
-    def chain(self, m: int, pred, body):
-        """body(j) for j = 0, 1, ... while pred() (a device bool) holds, at
-        most m times."""
-        for j in range(m):
-            if not bool(pred()):
-                return
-            body(j)
+MAX_LOOPS = 64                  # loops of one graph (trip counters)
 
 
 class CudaGraph:
-    """A function captured once into a CUDA graph with conditional nodes
-    (csrc/graph.cu) on a capture stream of its device, with its own memory
-    pool.  The launches of the wrappers called while it is captured are
-    recorded, not counted: `call` for the parts every replay runs (loop
-    bodies counted by their passes), `trip` for one chain iteration, the
-    same for every iteration (checked)."""
+    """A function captured once into a CUDA graph with one WHILE node per
+    loop (csrc/graph.cu) on a capture stream of its device, with its own
+    memory pool.  The launches of the wrappers called while it is captured
+    are recorded, not counted: `call` for those outside every loop,
+    `loops[k]` for one pass of loop k's body (outside the loops nested in
+    it), in the order the loops were opened; `parents[k]` is the loop that
+    encloses loop k (-1: none) and `trips[k]` counts loop k's passes on the
+    device (kernels.GraphLaunches folds them in)."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -66,16 +55,16 @@ class CudaGraph:
         self.handle = ctypes.c_void_p()
         self.pool = None
         self.stream = None
-        self.call, self.trip = Counter(), None
-        self.trips_captured = 0     # chain iterations captured
+        self.call, self.loops, self.parents = Counter(), [], []
+        self.trips = torch.zeros(MAX_LOOPS, dtype=torch.long, device=device)
         self.capture_seconds = 0.0
         self.pool_bytes = 0         # device memory the capture reserved
-        self._counts = []           # the WHILE nodes' pass counters
+        self._index = []            # each loop's j, kept as long as the graph
+        self._open = []             # the loops being captured, innermost last
 
     def capture(self, fn, need: int = 0):
-        """Capture fn(self) (fn calls self.repeat / self.chain) and
-        instantiate the graph; need: the bytes its pool will take, an
-        estimate (module note)."""
+        """Capture fn(self) (fn calls self.loop) and instantiate the graph;
+        need: the bytes its pool will take, an estimate (module note)."""
         t0 = time.perf_counter()
         if need and torch.cuda.mem_get_info(self.device)[0] < need:
             torch.cuda.empty_cache()
@@ -112,55 +101,47 @@ class CudaGraph:
             self.handle = ctypes.c_void_p()
             raise
 
-    def _node(self, pred=None):
-        """Open an IF node on the bool pred, or a WHILE node (pred None)."""
-        lib, sptr = kernels.lib(), self.stream.cuda_stream
-        if pred is None:
-            kernels.check(lib.ddaamg_graph_while(self.handle, sptr), "graph WHILE node")
-        else:
-            kernels.check(lib.ddaamg_graph_if(self.handle, pred.data_ptr(), sptr),
-                          "graph IF node")
+    def _begin_loop(self, j, go, m: int):
+        """Open loop k's WHILE node: j = 0, then passes while j < m and
+        any of go (a bool tensor, or None)."""
+        kernels.check(kernels.lib().ddaamg_graph_loop(
+            self.handle, j.data_ptr(), None if go is None else go.data_ptr(),
+            0 if go is None else go.numel(), m, self.stream.cuda_stream), "graph loop")
 
-    def _close(self, count=None, n: int = 0):
-        """Close the innermost node (a WHILE node: its body runs n times)."""
-        kernels.check(kernels.lib().ddaamg_graph_close(
-            self.handle, self.stream.cuda_stream,
-            None if count is None else count.data_ptr(), n), "graph node")
+    def _end_loop(self, k: int, j, go, m: int):
+        """Close loop k's body: j += 1, trips[k] += 1, again while j < m and
+        any of go."""
+        kernels.check(kernels.lib().ddaamg_graph_loop_end(
+            self.handle, j.data_ptr(), self.trips[k].data_ptr(),
+            None if go is None else go.data_ptr(), 0 if go is None else go.numel(), m,
+            self.stream.cuda_stream), "graph loop end")
 
-    def repeat(self, n: int, body):
-        """A WHILE node whose body runs n times a replay."""
-        if n < 1:
-            raise ValueError("a captured loop runs at least once")
-        count = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._counts.append(count)          # kept as long as the graph
+    def loop(self, m: int, pred, body):
+        """One WHILE node whose one body, captured once, is body(j) with j
+        a device int64 scalar; pred() a contiguous bool tensor (the same
+        storage before the node and after the body), or None."""
+        k = len(self.loops)
+        if k == MAX_LOOPS:
+            raise RuntimeError(f"a graph holds at most {MAX_LOOPS} loops")
         seg = Counter()
-        self._node()
-        with kernels.recording(seg):
-            body()
-        self._close(count, n)
-        for key, k in seg.items():
-            self.call[key] += k * n
-
-    def chain(self, m: int, pred, body):
-        """m nested IF nodes: iteration j runs where pred() holds after
-        iteration j - 1."""
-        opened = 0
+        self.loops.append(seg)
+        self.parents.append(self._open[-1] if self._open else -1)
+        j = torch.zeros((), dtype=torch.long, device=self.device)
+        self._index.append(j)
+        go = None if pred is None else pred()
+        if go is not None and (go.dtype != torch.bool or not go.is_contiguous()):
+            raise ValueError("a loop predicate is a contiguous bool tensor")
+        self._begin_loop(j, go, m)
+        self._open.append(k)
         try:
-            for j in range(m):
-                self._node(pred())
-                opened += 1
-                seg = Counter()
-                with kernels.recording(seg):
-                    body(j)
-                if self.trip is None:
-                    self.trip = seg
-                elif seg != self.trip:
-                    raise RuntimeError(f"chain iteration {j} launched {dict(seg)}, the "
-                                       f"first {dict(self.trip)}: launches per trip differ")
-                self.trips_captured += 1
+            with kernels.recording(seg):
+                body(j)
+                after = None if pred is None else pred()
+            if after is not None and after.data_ptr() != go.data_ptr():
+                raise RuntimeError("a loop predicate must keep its storage")
+            self._end_loop(k, j, after, m)
         finally:
-            for _ in range(opened):
-                self._close()
+            self._open.pop()
 
     def launch(self):
         """One replay on the current stream (kernel "G" of kernels.KERNELS)."""
@@ -174,9 +155,45 @@ class CudaGraph:
         if self.handle:
             kernels.check(kernels.lib().ddaamg_graph_destroy(self.handle, None), "graph free")
             self.handle = ctypes.c_void_p()
-        self._counts.clear()
+        self._index.clear()
         self.pool = None
 
     def __del__(self):
         with contextlib.suppress(Exception):
             self.close()
+
+
+class GraphProgram:
+    """program(ctl, **inputs) -> {name: output} captured once (capture: the
+    graph class, CudaGraph; tests give a stand-in) on static input buffers
+    made beforehand; calling it copies the given values (tensors, or
+    numbers to fill with) into the inputs,
+    replays the graph once and returns clones of the outputs.  need: the
+    pool's bytes, an estimate (CudaGraph.capture).  The graph's launches
+    are accounted from its recording and its loops' trips
+    (kernels.GraphLaunches), so the counts equal the host loop's."""
+
+    def __init__(self, program, inputs: dict, device, need: int = 0, capture=CudaGraph):
+        self.inputs = inputs
+        self.graph = capture(device)
+        out = self._out = {}
+        self.graph.capture(lambda ctl: out.update(program(ctl, **inputs)), need=need)
+        self.graph.trips.zero_()        # a capture runs nothing; a stand-in may have
+        self.launches = kernels.GraphLaunches(self, self.graph.call, self.graph.loops,
+                                              self.graph.trips)
+
+    def __call__(self, **values) -> dict:
+        for name, v in values.items():
+            if isinstance(v, torch.Tensor):
+                self.inputs[name].copy_(v)
+            else:
+                self.inputs[name].fill_(v)
+        self.graph.launch()
+        self.launches.replayed()
+        return {name: v.clone() for name, v in self._out.items()}
+
+    def close(self):
+        """Free the graph and its memory pool (the outputs first: they live
+        in the pool)."""
+        self._out.clear()
+        self.graph.close()

@@ -18,19 +18,21 @@ zeros, so it makes no NaN, and nested solves see a zero right-hand side
 there and freeze the lane at once.  All state (norms, counts, aux sums)
 stays on the device (GCRLanes, updated in place).
 
-Two drivers share GCRLanes' restart and step.  device_gcr is the host loop:
-it reads the device once per iteration, through lanes_go_on, and serves
-every GCR with a preconditioner (the K-cycle, the fine inner restart), every
-solve on the CPU and every solve on a process grid.  gcr_program (no
-preconditioner) hands its loops to a control object: HostControl decides
-them on the host (its plain version), a CudaGraph captures them into one
-CUDA graph with WHILE and IF nodes (solvers/cuda_graph.py), which the
-coarsest solve of one rank on a card replays (mg/coarsest.py).
+gcr_program hands its loops to a control object: HostControl decides them
+on the host, with one read of the device per iteration (lanes_go_on;
+device_gcr is gcr_program under it, the host loop), a CudaGraph captures
+them into one CUDA graph, one WHILE node a loop with a device-side
+iteration index (solvers/cuda_graph.py).  On a card with one rank the fine
+inner restart, the cycle and the coarsest solve run as such graphs
+(mg/programs.py, mg/coarsest.py), the K-cycle's and the coarsest GCR
+nested in them.
 
 The orthogonalization (the Krylov recurrence itself) runs in the field's own
 dtype; TF32 must be off for it (utils.pin_full_precision), because rounded
 coefficients floor the true residual an inner sweep can reach
-(docs/iteration_parity.md).
+(docs/iteration_parity.md).  On one rank K7 computes it with the row
+index j on the device (operators/cuda_gcr.py), reading only the rows
+below j, in the same summation order for the host loop and a replay.
 
 On a sharded level every inner product and norm is a global sum over the
 ranks (allsum, the stencil's all-reduce), one all-reduce for the [B] or
@@ -45,11 +47,29 @@ from typing import Callable, Optional
 
 import torch
 
+from ..operators import cuda_gcr
+
+COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
+
 
 def lanes_go_on(go: torch.Tensor) -> int:
-    """How many lanes go on (0: none): the loop's one read of the device
-    per iteration."""
+    """How many lanes go on (0: none): the host loop's one read of the
+    device per iteration."""
     return int(go.sum())
+
+
+class HostControl:
+    """The plain version of a device program's control flow
+    (solvers/cuda_graph.py): every loop predicate is read on the host
+    (lanes_go_on), j is a Python int."""
+
+    def loop(self, m: int, pred, body):
+        """body(j) for j = 0, 1, ... while j < m and (pred None or) some
+        element of pred() holds."""
+        for j in range(m):
+            if pred is not None and not lanes_go_on(pred()):
+                return
+            body(j)
 
 
 def _prec_out(prec, r):
@@ -69,17 +89,19 @@ def _norm(a, allsum):
     return torch.sqrt(allsum(torch.linalg.vector_norm(a, dim=-1) ** 2))
 
 
-def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j: int, w: torch.Tensor,
+def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j, w: torch.Tensor,
                    q: torch.Tensor, allsum: Optional[Callable] = None):
     """Classical Gram-Schmidt of each lane's w [B, n] against the first j
     rows of its W [B, m, n], applied alike to q, then normalization by |w|
-    (a zero w stays zero); rows are flattened fields (slabs, with allsum
-    the sum over the ranks).  The results are written to row j of W and Q;
-    returns them (views)."""
+    (a zero w stays zero); the results are written to row j of W and Q and
+    returned.  On one rank j is a device int64 scalar and K7 computes it
+    (operators/cuda_gcr.py: its plain version on the CPU).  On a slab
+    (allsum: the sum over the ranks) j is a Python int and the products
+    run over the j written rows, with one all-reduce for h."""
+    if allsum is None:
+        return cuda_gcr.orthonormalize(W, Q, j, w, q)
     if j:
-        h = W[:, :j].conj() @ w.unsqueeze(-1)                  # [B, j, 1]: <W_i, w>
-        if allsum is not None:
-            h = allsum(h)
+        h = allsum(W[:, :j].conj() @ w.unsqueeze(-1))          # [B, j, 1]: <W_i, w>
         h = h.transpose(-1, -2)
         w = w - (h @ W[:, :j]).squeeze(1)
         q = q - (h @ Q[:, :j]).squeeze(1)
@@ -92,14 +114,16 @@ def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j: int, w: torch.Tensor,
 
 class GCRLanes:
     """The state of one restarted GCR solve of a batch of lanes b [B, *shape]:
-    flattened fields x, r, the bases W and Q [B, m, n], the norms, the go
-    mask and the iteration counts.  Made once; every later update is in
-    place (restart, step), so that a device program whose conditional
-    bodies are skipped leaves the state as the host loop leaves it
-    (solvers/cuda_graph.py)."""
+    flattened fields x, r, the bases W and Q [B, m, n] (zeros at first),
+    the norms, the go mask, the iteration counts and, with n_aux, the sum
+    of the preconditioner's [B, n_aux] counters.  Made once; every later
+    update is in place (restart, step), so that a device program whose
+    loop bodies run again on the same memory, or not at all, leaves the
+    state as the host loop leaves it (solvers/cuda_graph.py)."""
 
     def __init__(self, b: torch.Tensor, m: int, tol, x0=None,
-                 allsum: Optional[Callable] = None, active: Optional[torch.Tensor] = None):
+                 allsum: Optional[Callable] = None, active: Optional[torch.Tensor] = None,
+                 n_aux: int = 0):
         self.shape = b.shape
         B = self.B = b.shape[0]
         self.allsum, self.active = allsum, active
@@ -115,10 +139,14 @@ class GCRLanes:
         self.rn = self.bnorm.clone()
         self.go = torch.zeros(B, dtype=torch.bool, device=b.device)
         self.iters = torch.zeros(B, dtype=torch.long, device=b.device)
-        self.aux_sum = None
-        # row j of every lane is written at iteration j before any read of it
-        self.W = torch.empty((B, m, self.bf.shape[1]), dtype=b.dtype, device=b.device)
-        self.Q = torch.empty_like(self.W)
+        self.aux_sum = (torch.zeros((B, n_aux), dtype=COUNTER_DTYPE, device=b.device)
+                        if n_aux else None)
+        # row j of every lane is written at iteration j; K7 reads no row from
+        # j on, its plain version multiplies them by a zero h (zeros here:
+        # fresh memory could hold a NaN, and 0 * NaN is NaN)
+        self.W = torch.zeros((B, m, self.bf.shape[1]), dtype=b.dtype, device=b.device)
+        self.Q = torch.zeros_like(self.W)
+        self._rows = None       # the row indices on the device, for a host j
 
     def _stop_test(self):
         """go = |r| >= tol |b| (and active): a frozen lane keeps its |r|,
@@ -127,6 +155,16 @@ class GCRLanes:
         if self.active is not None:
             self.go &= self.active
 
+    def _row(self, j):
+        """Row j as orthonormalize takes it: a device index on one rank (a
+        host j through a table made at the first host step), the int on a
+        slab."""
+        if self.allsum is not None or isinstance(j, torch.Tensor):
+            return j
+        if self._rows is None:
+            self._rows = torch.arange(self.W.shape[1], device=self.W.device)
+        return self._rows[j]
+
     def restart(self, apply_op: Callable):
         """r = b - A x for every lane, its norm and the go mask."""
         torch.sub(self.bf, apply_op(self.x.reshape(self.shape)).reshape(self.B, -1),
@@ -134,18 +172,18 @@ class GCRLanes:
         self.rn.copy_(_norm(self.r, self.allsum))
         self._stop_test()
 
-    def step(self, j: int, apply_op: Callable, prec: Optional[Callable] = None,
-             masked: bool = True):
-        """Iteration j of a restart for the lanes that go; masked=False
-        takes every lane as going (the host loop, when all go)."""
+    def step(self, j, apply_op: Callable, prec: Optional[Callable] = None):
+        """Iteration j (a Python int, or a device int64 scalar in a graph's
+        loop) of a restart for the lanes that go."""
         B = self.B
         # a frozen lane enters as zeros: its alpha is 0, so its x and r keep
-        # their bits, and a nested solve freezes it at once
-        gcol = self.go[:, None] if masked else None
+        # their bits, and a nested solve freezes it at once (one lane
+        # iterates only while it goes)
+        gcol = self.go[:, None] if B > 1 else None
         r_in = self.r if gcol is None else torch.where(gcol, self.r, 0)
         q, aux = _prec_out(prec, r_in.reshape(self.shape))
         w = apply_op(q).reshape(B, -1)
-        w, q = orthonormalize(self.W, self.Q, j, w, q.reshape(B, -1), self.allsum)
+        w, q = orthonormalize(self.W, self.Q, self._row(j), w, q.reshape(B, -1), self.allsum)
         # <w, r> as a product and a sum: a batched complex64 matrix
         # product [1, n] @ [n, 1] carries relative errors of 1e-5 at
         # n = 12 * 16^4 on the card, which let the residual recurrence
@@ -158,7 +196,9 @@ class GCRLanes:
         self.iters += self.go
         if aux is not None:
             aux = aux if gcol is None else torch.where(gcol, aux, 0)
-            self.aux_sum = aux if self.aux_sum is None else self.aux_sum + aux
+            if self.aux_sum is None:        # the host loop: sized by the first aux
+                self.aux_sum = torch.zeros_like(aux)
+            self.aux_sum += aux
         self.rn.copy_(_norm(self.r, self.allsum))
         self._stop_test()
 
@@ -176,7 +216,8 @@ def device_gcr(apply_op: Callable, b: torch.Tensor, m: int, tol,
                active: Optional[torch.Tensor] = None):
     """Solve A x_i = b_i for every lane of b [B, *shape] to
     ||r_i|| < tol_i ||b_i|| with restarted flexible GCR, driven by the
-    host (one read of the device per iteration).
+    host (gcr_program under HostControl: one read of the device per
+    iteration).
 
     apply_op and prec take and return [B, *shape]; prec(v) -> z or
     (z, aux) with aux a [B, k] float tensor (e.g. coarse-work counters),
@@ -186,37 +227,32 @@ def device_gcr(apply_op: Callable, b: torch.Tensor, m: int, tol,
     (x [B, *shape], iterations [B], final squared relative residual [B],
     aux sum [B, k] or None), all on b's device.
     """
-    st = GCRLanes(b, m, tol, x0, allsum, active)
-    for _ in range(n_restarts):
-        st.restart(apply_op)
-        for j in range(m):
-            going = lanes_go_on(st.go)
-            if not going:
-                break
-            st.step(j, apply_op, prec, masked=going != st.B)
-    return st.result()
+    return gcr_program(HostControl(), apply_op, b, m, tol, n_restarts, prec, x0, allsum,
+                       active)
 
 
 def gcr_program(ctl, apply_op: Callable, b: torch.Tensor, m: int, tol,
-                n_restarts: int = 1, trips: Optional[torch.Tensor] = None,
-                allsum: Optional[Callable] = None, active: Optional[torch.Tensor] = None):
-    """device_gcr without a preconditioner, its control flow given to ctl
-    (solvers/cuda_graph.py): the restarts a loop (ctl.repeat), each
-    restart's iterations a chain that stops once no lane goes (ctl.chain),
-    the same restart and step as the host loop.  Every iteration masks the
-    frozen lanes (B > 1), which gives the host loop's bits: a lane that
-    goes enters as itself.  trips (a device int64 scalar), if given, counts
-    the iterations run.  Returns device_gcr's tuple."""
-    st = GCRLanes(b, m, tol, None, allsum, active)
+                n_restarts: int = 1, prec: Optional[Callable] = None,
+                x0: Optional[torch.Tensor] = None, allsum: Optional[Callable] = None,
+                active: Optional[torch.Tensor] = None, n_aux: int = 0):
+    """Restarted flexible GCR with its control flow given to ctl
+    (HostControl, or a CudaGraph being captured): the restarts a loop of
+    n_restarts passes, each restart's iterations a loop that runs while
+    some lane goes.  Every iteration masks the frozen lanes (B > 1): a lane
+    that goes enters as itself, so a replay gives the host loop's bits.
+    Arguments and result as device_gcr's; n_aux: the width of prec's aux,
+    whose sum then starts as zeros before any iteration (0: sized by the
+    first aux, None if no iteration runs; the host loop only).  The fine
+    inner restart, the K-cycle's and the coarsest GCR are this one
+    program."""
+    st = GCRLanes(b, m, tol, x0, allsum, active, n_aux)
 
     def iteration(j):
-        st.step(j, apply_op, masked=st.B > 1)
-        if trips is not None:
-            trips.add_(1)
+        st.step(j, apply_op, prec)
 
-    def restart():
+    def restart(_):
         st.restart(apply_op)
-        ctl.chain(m, lambda: st.go.any(), iteration)
+        ctl.loop(m, lambda: st.go, iteration)
 
-    ctl.repeat(n_restarts, restart)
+    ctl.loop(n_restarts, None, restart)
     return st.result()

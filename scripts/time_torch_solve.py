@@ -2,7 +2,8 @@
 """Wall times of the port's rough16 path on one CUDA card, for comparing two
 checkouts in turns within one call:
 
-    python3 scripts/time_torch_solve.py [--root DIR] [--repeats N] [--options] [--out FILE]
+    python3 scripts/time_torch_solve.py [--root DIR] [--repeats N] [--options | --defaults]
+                                        [--out FILE]
 
 With the accelerator options off: two setups (hierarchy and bootstrap; the
 second is the one reported as warm), N warm solves of the right-hand side
@@ -12,9 +13,13 @@ around work that ends in torch.cuda.synchronize (SetupStatus.setup_time,
 SolveInfo.solve_time; a batch's time is solve_time times its size).
 --options turns the three accelerator options on (bf16 coarse blocks, the
 coarsest Schur inverse, direct block solves) and adds K6's device time
-(chip_smoke.k6_device_ms: torch.profiler's kernel events) in one more warm
-solve, in one more batch, and in a warm solve of method 3 (sixteen-colour
-SAP) with the options, after its setup and first solve.  --root DIR times
+(chip_smoke.k6_device_ms: torch.profiler's kernel events, with every GCR
+driven from the host where the checkout has device programs: the profiler
+misses kernels inside graph replays) in one more warm solve, in one more
+batch, and in a warm solve of method 3 (sixteen-colour SAP) with the
+options, after its setup and first solve.  --defaults leaves the options
+unset, so that the CUDA defaults decide (chip_smoke.py's phase
+"defaults").  --root DIR times
 the package of another checkout (e.g. the parent commit unpacked by git
 archive under build/) on the same data.  Prints one JSON
 line (the card's nvidia-smi line in it) and writes it to FILE (default
@@ -40,6 +45,7 @@ def main():
     ap.add_argument("--root", default=HERE, help="checkout whose package is timed")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--options", action="store_true", help="the accelerator options on")
+    ap.add_argument("--defaults", action="store_true", help="the options left to the defaults")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "time_torch_solve.json"))
     args = ap.parse_args()
     sys.path[:0] = [os.path.abspath(args.root), HERE]
@@ -51,7 +57,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels.lib()
-    solver = api.Solver(chip_smoke.rough16_params(args.options), device="cuda")
+    solver = api.Solver(chip_smoke.rough16_params(None if args.defaults else args.options),
+                        device="cuda")
     solver.read_conf()
     setups = [solver.setup().setup_time for _ in range(2)]
     rhs = config.make_rhs("ones", solver.lattice)
@@ -72,9 +79,11 @@ def main():
             batches.append(infos[0].solve_time * len(infos))
         result.update(multi_batch_s=batches, multi_batch_median_s=statistics.median(batches),
                       multi_iterations=[i.iterations for i in infos])
+    result.update(defaults=args.defaults)
     if args.options:
-        k6 = {"warm solve": chip_smoke.k6_device_ms(lambda: solver.solve(rhs)),
-              "solve_multi": chip_smoke.k6_device_ms(lambda: solver.solve_multi(point))}
+        with chip_smoke.host_loops():
+            k6 = {"warm solve": chip_smoke.k6_device_ms(lambda: solver.solve(rhs)),
+                  "solve_multi": chip_smoke.k6_device_ms(lambda: solver.solve_multi(point))}
         del solver
         m3 = api.Solver(chip_smoke.method_params(3, **{k: True for k in chip_smoke.OPTIONS}),
                         device="cuda")
@@ -82,7 +91,8 @@ def main():
         m3.setup()
         m3.solve(rhs)
         _, info = m3.solve(rhs)
-        k6["method 3, warm solve"] = chip_smoke.k6_device_ms(lambda: m3.solve(rhs))
+        with chip_smoke.host_loops():
+            k6["method 3, warm solve"] = chip_smoke.k6_device_ms(lambda: m3.solve(rhs))
         result.update(options=True, k6_device_ms={p: ms for p, (ms, _) in k6.items()},
                       k6_launches={p: n for p, (_, n) in k6.items()},
                       method3_warm_solve_s=info.solve_time, method3_iterations=info.iterations)

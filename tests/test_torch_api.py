@@ -19,7 +19,7 @@ from ddalphaamg_tpu import api as japi
 from ddalphaamg_tpu import config as jconfig
 from ddalphaamg_tpu import io as jio
 from ddalphaamg_tpu_torch import api, cli, config, kernels
-from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash
+from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash, cuda_gcr
 from ddalphaamg_tpu_torch.solvers import device_gmres
 
 torch.set_num_threads(1)
@@ -104,9 +104,12 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_coarse.coarse_apply(coarse.compress(blocks), v, lat)
     cuda_coarse.coarse_apply_halo(coarse.compress(blocks), v, lat, {1: (face, face)})
     cuda_dense.matvec(coarse.compress(blocks[0, None, :, :, 0]), v[None, :, 0])
+    W = torch.zeros(1, 3, 4 * V, dtype=torch.complex64)
+    cuda_gcr.orthonormalize(W, torch.zeros_like(W), torch.tensor(0), v.reshape(1, -1),
+                            v.reshape(1, -1))
     assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
     assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6",
-                                    "G"}
+                                    "K7", "G"}
 
 
 def test_cuda_request_never_runs_on_cpu():

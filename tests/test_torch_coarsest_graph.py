@@ -2,16 +2,18 @@
 on the CPU, where the graph's control flow runs on the host (HostControl,
 its plain version) and a stand-in replaces the CUDA capture:
 
-  (a) gcr_program, the GCR a graph captures, gives the host loop's
-      (device_gcr's) x, iterations and residuals bit for bit, alone and
-      inside coarsest_gcr (Schur and full-operator branches): batch 1 and 3,
-      per-lane tolerances, an active mask, a zero lane, 1 and 5 restarts;
+  (a) gcr_program, the GCR a graph captures, through the stand-in capture
+      gives the host loop's (device_gcr's) x, iterations and residuals bit
+      for bit, alone and inside coarsest_gcr (Schur and full-operator
+      branches): batch 1 and 3, per-lane tolerances, an active mask, a zero
+      lane, 1 and 5 restarts;
   (b) against the JAX package's device_gcr, vmapped over the lanes, on the
       Schur operator of a small coarsest level (complex64): equal
       iterations, x within 1e-5 relative;
-  (c) the trips of a restart are the largest lane count of that restart,
-      and the launches a graph accounts from its recording and its trips
-      are a counting stencil's launches in the host loop;
+  (c) the passes of a restart's iteration loop are the largest lane count
+      of that restart, and the launches a graph accounts from its
+      recording and its loops' trips are a counting stencil's launches in
+      the host loop;
   (d) the Multigrid keeps one graph per (level, batch, dtype, view), reuses
       it, drops it after re_setup, shift_update, a setup and a new Solver
       setup, and never uses one on a mesh or, unpatched, on the CPU.
@@ -28,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_graph_stub import StubGraph
 from torch_parity import random_spinor, rough_field, to_numpy
 
 from ddalphaamg_tpu import cplx
@@ -41,8 +44,8 @@ from ddalphaamg_tpu_torch.mg import coarsest, hierarchy
 from ddalphaamg_tpu_torch.mg.hierarchy import LevelConfig, MGConfig, Multigrid
 from ddalphaamg_tpu_torch.operators.stencil import CoarseStencilSoA, schur
 from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
-from ddalphaamg_tpu_torch.solvers.cuda_graph import CudaGraph, HostControl
-from ddalphaamg_tpu_torch.solvers.device_gmres import device_gcr, gcr_program
+from ddalphaamg_tpu_torch.solvers.cuda_graph import GraphProgram
+from ddalphaamg_tpu_torch.solvers.device_gmres import HostControl, device_gcr, gcr_program
 
 torch.set_num_threads(1)
 
@@ -72,6 +75,13 @@ def _equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
 
+def _stub_program(program, **inputs):
+    """program(ctl, **inputs) captured by the stand-in and replayed once."""
+    g = GraphProgram(program, {k: v.clone() for k, v in inputs.items()}, "cpu",
+                     capture=StubGraph)
+    return g(**inputs)
+
+
 # ---------------------------------------------------------------------------
 # (a) bit for bit against the host loop
 # ---------------------------------------------------------------------------
@@ -96,9 +106,10 @@ def test_gcr_program_gives_the_host_loops_bits(case):
     active = torch.tensor(c["active"]) if "active" in c else None
     kw = dict(m=8, tol=tol, n_restarts=c["restarts"], active=active)
     want = device_gcr(s.full_op, b, **kw)
-    trips = torch.zeros((), dtype=torch.long)
-    got = gcr_program(HostControl(), s.full_op, b, trips=trips, **kw)
-    assert _equal(got, want)
+    # captured by the stand-in (every loop body recorded once), replayed
+    got = _stub_program(lambda ctl, b: dict(enumerate(gcr_program(ctl, s.full_op, b, **kw)[:3])),
+                        b=b)
+    assert _equal(got.values(), want[:3])
     assert want[1].max() > 8 or c["restarts"] == 1          # restarts that iterate
     if active is not None:
         assert want[1][1] == 0 and not want[0][1].any()
@@ -113,8 +124,9 @@ def test_coarsest_program_gives_the_host_loops_bits(odd_even, B, restarts):
     b = _lanes(B, 3)
     args = (6, 1e-4, restarts, odd_even)
     want = coarsest.coarsest_gcr(s, b, *args)
-    got = coarsest.coarsest_gcr(s, b, *args, gcr=functools.partial(gcr_program, HostControl()))
-    assert _equal(got, want)
+    got = _stub_program(lambda ctl, b: dict(enumerate(coarsest.coarsest_gcr(
+        s, b, *args, gcr=functools.partial(gcr_program, ctl)))), b=b)
+    assert _equal(got.values(), want)
     assert torch.equal(want[1][:, 1], want[1][:, 0] + restarts)
 
 
@@ -165,13 +177,21 @@ def test_trips_of_a_restart_are_its_largest_lane_count():
     s = _stencil()
     b = _lanes(3, 6)
     tol = torch.tensor([1e-2, 1e-5, 1e-3])
+
+    def program(ctl, b, restarts):
+        _, it, _, _ = gcr_program(ctl, s.full_op, b, 6, tol, restarts)
+        return {"it": it}
+
     prev_it, prev_trips = torch.zeros(3, dtype=torch.float32), 0
     for restarts in range(1, 5):
-        trips = torch.zeros((), dtype=torch.long)
-        _, it, _, _ = gcr_program(HostControl(), s.full_op, b, 6, tol, restarts, trips=trips)
-        got = int(trips) - prev_trips
-        assert got == int((it - prev_it).max())
-        prev_it, prev_trips = it, int(trips)
+        g = GraphProgram(functools.partial(program, restarts=restarts), {"b": b.clone()},
+                         "cpu", capture=StubGraph)
+        it = g(b=b)["it"]
+        assert g.graph.parents == [-1, 0]        # the iterations nested in the restarts
+        passes, trips = g.graph.trips[:2].tolist()
+        assert passes == restarts
+        assert trips - prev_trips == int((it - prev_it).max())
+        prev_it, prev_trips = it, trips
     assert prev_trips > 6
 
 
@@ -182,36 +202,6 @@ class CountingStencil(CoarseStencilSoA):
     def _apply(self, Pk, v, terms, masked=False, parity=None):
         kernels.launched("K4")
         return super()._apply(Pk, v, terms, masked, parity)
-
-
-class StubGraph(CudaGraph):
-    """CudaGraph's recording without CUDA: capture runs the program once
-    through every body (recording launches, as a capture records them) and
-    a replay runs it with its control flow on the host, its own launches
-    not counted (the graph's accounting counts them)."""
-
-    captures = 0
-
-    def _capturing(self):
-        StubGraph.captures += 1
-        return torch.no_grad()
-
-    def _node(self, pred=None):
-        pass
-
-    def _close(self, count=None, n=0):
-        pass
-
-    def capture(self, fn, need=0):
-        self.fn = fn
-        super().capture(fn)
-
-    def launch(self):
-        with kernels.recording(Counter()):
-            self.fn(HostControl())
-
-    def close(self):
-        self.fn = None
 
 
 @pytest.fixture
@@ -228,7 +218,9 @@ def test_graph_launch_accounting_equals_the_counting_stencil(stub_graphs, odd_ev
     args = (6, 1e-4, 3, odd_even)
     graph = coarsest.CoarsestGraph(s, 3, *args, capture=StubGraph)
     kernels.reset_counts()
-    assert graph.graph.trip == Counter({"K4": 4 if odd_even else 1})
+    apply = Counter({"K4": 4 if odd_even else 1})
+    assert graph.graph.loops == [apply, apply]          # a restart's and an iteration's
+    assert graph.graph.call == Counter({"K4": 4} if odd_even else {})
     host = 0
     for seed in (7, 8):
         b = _lanes(3, seed)
@@ -238,6 +230,7 @@ def test_graph_launch_accounting_equals_the_counting_stencil(stub_graphs, odd_ev
         got = graph(b)
         assert _equal(got, want)
         assert kernels.counts()["K4"] == 2 * host          # host loop + replay
+        assert kernels.counts()["G"] == 1
     assert host > 0 and graph.launches.replays == 2
     kernels.reset_counts()
 
@@ -339,9 +332,10 @@ mixed precision: 1
     s.setup()
     assert stub_graphs.captures > 0 and max(kept) == 1
     lvl = s.mg._levels()[-1]
-    assert not lvl.graphs
+    assert not lvl.graphs and not s.mg.programs
     x, info = s.solve(config.make_rhs("ones", s.lattice))
-    assert info.converged and lvl.graphs
+    # the solve's coarsest GCR is nested in its inner restarts' program
+    assert info.converged and not lvl.graphs and s.mg.programs
     old = s.mg
     s.setup()
-    assert not lvl.graphs and s.mg is not old
+    assert not old.programs and s.mg is not old

@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels K1-K6 (K2 and K3 with a parity and the
+"""The hand-written CUDA kernels K1-K7 (K2 and K3 with a parity and the
 compact odd-site clover storage; K4 and K5 with f32, f64 and bf16
-blocks) against their plain PyTorch versions on a card, small solves
-through them, and the coarsest GCR as a CUDA graph (mg/coarsest.py)
-against the host loop.  Every test here needs a CUDA
+blocks; K7 with its row read from the device) against their plain
+PyTorch versions on a card, small solves through them, and the device
+programs (the coarsest GCR, mg/coarsest.py; the inner restart and the
+cycle, mg/programs.py) as CUDA graphs against the host loops.  Every test here needs a CUDA
 device and skips without one.  The file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -16,7 +17,9 @@ import torch
 from ddalphaamg_tpu_torch import api, config, kernels
 from ddalphaamg_tpu_torch.geometry import Geometry
 from ddalphaamg_tpu_torch.mg.coarsest import CoarsestGraph, coarsest_gcr
-from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dense, cuda_dslash, fast
+from ddalphaamg_tpu_torch.mg import hierarchy
+from ddalphaamg_tpu_torch.operators import (coarse, cuda_coarse, cuda_dense, cuda_dslash,
+                                            cuda_gcr, fast)
 from ddalphaamg_tpu_torch.operators.stencil import ODD, CoarseStencilSoA
 
 torch.set_num_threads(1)
@@ -546,9 +549,11 @@ def test_coarsest_graph_matches_the_host_loop(cuda, lat, batch, bf16, m):
 
 @pytest.mark.gpu
 def test_coarsest_graphs_follow_the_hierarchy(cuda):
-    """A solve with the options off runs the coarsest GCR as graphs; after
-    shift_update the next replay uses the shifted stencil and agrees with
-    the host loop; the setup leaves no graph behind."""
+    """A solve with the options off runs each inner restart as one program
+    (its coarsest GCR nested in it, no coarsest graph of its own); after
+    shift_update the programs are gone, the next coarsest replay uses the
+    shifted stencil and agrees with the host loop; the setup leaves no
+    graph behind."""
     p = config.parse_ini(SMALL + "coarse block bf16: 0\ncoarsest direct: 0\n"
                                  "smoother direct: 0\n")
     s = api.Solver(p, device=cuda)
@@ -556,13 +561,14 @@ def test_coarsest_graphs_follow_the_hierarchy(cuda):
     s.setup()
     mg = s.mg
     lvl = mg._levels()[-1]
-    assert not lvl.graphs and mg.graph_stats["captures"] > 0
+    assert not lvl.graphs and not mg.programs and mg.graph_stats["captures"] > 0
     rhs = config.make_rhs("ones", s.lattice)
     x, info = s.solve(rhs)
-    assert info.converged and list(lvl.graphs) == [(1, torch.complex64, torch.complex64)]
+    assert info.converged and not lvl.graphs
+    assert [k[0] for k in mg.programs] == ["InnerRestartGraph"]
     old = lvl.stencil
     s.shift_update(p.m0 + 0.01)
-    assert not lvl.graphs and lvl.stencil is not old
+    assert not lvl.graphs and not mg.programs and lvl.stencil is not old
     gen = torch.Generator(device=cuda).manual_seed(6)
     b = _cplx((1, *lvl.stencil.field_shape), gen, torch.complex64, cuda)
     x1, c1 = mg._coarsest_solve(lvl, b)
@@ -573,3 +579,65 @@ def test_coarsest_graphs_follow_the_hierarchy(cuda):
     assert torch.equal(c1, c0) and (torch.equal(x1, x0) or _rel(x1, x0) <= 1e-6)
     x2, info2 = s.solve(rhs)
     assert info2.converged and s.true_residual(x2, rhs) < 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m, B", [(14336, 100, 1), (14336, 100, 12), (229376, 5, 3),
+                                     (786432, 50, 1), (2**20 + 3, 7, 2)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_gram_schmidt_kernel_matches_plain(cuda, dtype, n, m, B):
+    """K7 against its plain version at rows j = 0, 1, m // 2 and m - 1 of
+    bases whose rows from j + 1 on hold another restart's values (K7 reads
+    none of them); the written rows and the outputs agree, and repeated
+    launches give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    W = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
+    Q = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
+    for j in sorted({0, 1, m // 2, m - 1}):
+        w, q = _cplx((B, n), gen, dtype, cuda), _cplx((B, n), gen, dtype, cuda)
+        jt = torch.tensor(j, device=cuda)
+        Wp, Qp = W.clone(), Q.clone()
+        wo, qo = cuda_gcr.orthonormalize(W, Q, jt, w, q)
+        wp, qp = cuda_gcr.orthonormalize_plain(Wp, Qp, jt, w, q)
+        assert _rel(wo, wp) <= TOL[dtype] and _rel(qo, qp) <= TOL[dtype]
+        assert torch.equal(W[:, j], wo) and torch.equal(Q[:, j], qo)
+        assert torch.equal(W[:, :j], Wp[:, :j]) and torch.equal(W[:, j + 1:], Wp[:, j + 1:])
+        assert all(torch.equal(a, b) for a, b in zip(cuda_gcr.orthonormalize(W, Q, jt, w, q),
+                                                       (wo, qo)))
+    zero = torch.zeros((B, n), dtype=dtype, device=cuda)        # a zero w stays zero
+    wo, qo = cuda_gcr.orthonormalize(W, Q, torch.tensor(0, device=cuda), zero, zero)
+    assert not wo.any() and not qo.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [False, True], ids=["options off", "options on"])
+def test_inner_restart_and_cycle_replays_match_the_host_loops(cuda, options, monkeypatch):
+    """One replay of the inner restart (batch 1 and 3, a zero lane) and of
+    the cycle gives the host loops' bits, counters and launches."""
+    on = "1" if options else "0"
+    p = config.parse_ini(SMALL + f"coarse block bf16: {on}\ncoarsest direct: {on}\n"
+                                 f"smoother direct: {on}\n")
+    s = api.Solver(p, device=cuda)
+    s.set_conf(_unitary_links((8, 8, 8, 8), 4))
+    s.setup()
+    mg = s.mg
+    mg._ensure_inverses()           # built at the first solve, outside what is compared
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for B in (1, 3):
+        r = _cplx((B, 12, 8**4), gen, torch.complex64, cuda)
+        if B > 1:
+            r[1] = 0
+        tol = torch.full((B,), 1e-5, dtype=torch.float64, device=cuda)
+        for run in (lambda: mg.inner_restart(r, tol, m=20), lambda: (mg(r),)):
+            outs = []
+            for devices in ((), ("cuda",), ("cuda",)):        # host loops, capture, replay
+                monkeypatch.setattr(hierarchy, "GRAPH_DEVICES", devices)
+                before = dict(mg.stats)
+                kernels.reset_counts()
+                out = run()
+                counts = kernels.counts()
+                outs.append((out, counts, [mg.stats[k] - before[k] for k in before]))
+            (host, hc, hs), _, (got, gc, gs) = outs
+            assert all(torch.equal(a, b) for a, b in zip(got, host)) and gs == hs
+            assert gc.pop("G") == 1 and hc.pop("G") == 0 and gc == hc
+            assert hc["K7"] > 0 and hc["K1"] > 0
