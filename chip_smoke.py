@@ -65,12 +65,20 @@ Phases, one result line each (or a few), in order:
               the tensor-core kernel, one read of the matrix, whose bound
               counts the exact split's 3 x 8 nc m^2 R operations at the
               bf16 tensor-core rate, 989 TFLOP/s), its library call
-              [nc, m, m] @ [nc, m, 12]; K7, the Gram-Schmidt with its row j
-              read from the device (K7_CASES: the fine GCR's 16^4 x 12 at
-              m = 50, the K-cycle's 8^4 d = 56 at m = 5, the coarsest 4^4 and
-              8^4 d = 56 at m = 100, batch 1 and 12, complex64, and one
-              complex128 row), its library call the j-row torch products
-              (cuBLAS), its bound (2j + 4) n elements a lane
+              [nc, m, m] @ [nc, m, 12]; K7, the whole GCR step after the
+              operator apply (the Gram-Schmidt with its row j read from the
+              device, alpha, the x / r updates, the norm and the stop test;
+              K7_CASES: the fine GCR's 16^4 x 12 at m = 50, the K-cycle's
+              8^4 d = 56 at m = 5, the coarsest 4^4 and 8^4 d = 56 at
+              m = 100, batch 1 and 12, complex64, and one complex128 row),
+              every time of its row a step as raw launches captured in a
+              CUDA graph (graph_ms), its library call the sequence the port
+              ran before (the j-row torch products through cuBLAS, then
+              vecdot, the updates, the norm and the stop test in torch),
+              its bound (2j + 8) n elements a lane; and one GCRLanes.step
+              profiled at 4^4 and 8^4 d = 56, batch 1 and 2: K7's one or two
+              kernels and no other than the operator's, the preconditioner's
+              and the aux sum's
   3b. graph   the coarsest GCR (mg/coarsest.py) as one CUDA graph replay
               ("G": one-body WHILE loops with a device-side index,
               csrc/graph.cu) against the host loop on random coarse
@@ -280,14 +288,15 @@ K7_CASES = (("16^4 x 12 (fine GCR)", 16**4 * 12, 50, (1, 10, 49), (1, 12), torch
             ("16^4 x 12 (fine GCR)", 16**4 * 12, 50, (10,), (1,), torch.complex128))
 # K1 (csrc/dslash.cu's dslash kernels with the clover), K2 (without), K3,
 # K6 (csrc/dense.cu), the coarse kernels K4 / K4-bf16 (csrc/coarse.cu), K7's
-# four passes (csrc/gcr.cu) and the graphs' loop kernels (csrc/graph.cu) by
-# the names of their instances, in the profiler's kernel events
+# designs (csrc/gcr.cu: the cluster kernel, the grid design's two) and the
+# graphs' loop kernels (csrc/graph.cu) by the names of their instances, in
+# the profiler's kernel events
 KERNEL_EVENTS = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true"),
                  "K2": re.compile(r"dslash_(mrhs_)?kernel<(float|double), false"),
                  "K3": re.compile(r"clover_kernel<"),
                  "K4": re.compile(r"coarse_(b1|mrhs)_kernel"),
                  "K6": re.compile(r"dense_bf16"),
-                 "K7": re.compile(r"gs_(dots|hsum|update|scale)"),
+                 "K7": re.compile(r"gcr_(cluster_step|dots|update)"),
                  "G loops": re.compile(r"loop_(start|next)_kernel")}
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
@@ -365,6 +374,31 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+_graph_stream = []      # graph_ms's capture stream, made at its first use
+
+
+def graph_ms(fn, reps=20):
+    """ms of one fn call, as `reps` calls captured in one CUDA graph
+    (torch.cuda.CUDAGraph) and replayed, timed by CUDA events after a
+    warm-up call on the capture stream (cuBLAS takes its workspace for a
+    stream at the first product there) and a warm-up replay: a kernel's
+    device time without the host's wrapper work between launches."""
+    if not _graph_stream:
+        _graph_stream.append(torch.cuda.Stream())
+    stream = _graph_stream[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(g.replay, reps=3) / reps
+    del g
+    return ms
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -407,6 +441,13 @@ def compare(results, key, label, kernel_fn, plain_fn, dtype, work, library_fn=No
     ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, reps=3)
     if chunks is None:
         lib_ms = cuda_ms(library_fn, reps=3) if library_fn is not None else None
+    record(results, key, label, abs_err, rel, ms, plain_ms, lib_ms, dtype, work)
+
+
+def record(results, key, label, abs_err, rel, ms, plain_ms, lib_ms, dtype, work):
+    """Print and keep one case's numbers (compare): its bound from work =
+    (bytes, operations[, peak rate]); fails above the dtype's tolerance."""
+    tol = TOL[dtype]
     peak = work[2] if len(work) > 2 else PEAK_FLOPS[dtype]
     by_bytes, by_ops = work[0] / MEM_BYTES_PER_S, work[1] / peak
     bound_ms = 1e3 * max(by_bytes, by_ops)
@@ -925,19 +966,25 @@ def check_kernels(results, U32):
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
     check_dense_kernel(results, gen, d, lat)
     check_gram_schmidt(results, gen)
+    check_step_launches(gen)
     check_rough32_kernels(results, gen, U32, params.m0, params.csw, ROUGH32_SHAPES)
 
 
 def check_gram_schmidt(results, gen):
-    """K7 (operators/cuda_gcr.py) against its plain version (the masked
-    products over all m rows) at the GCR shapes of the paths (K7_CASES),
-    batch 1 and 12: row j of random bases whose rows below j are filled
-    and the rest zero; the library call is the j-row torch Gram-Schmidt
-    (cuBLAS products, solvers/device_gmres.orthonormalize on a slab, with
-    the sum over the ranks the identity).  Bound: (2j + 4) n elements a
-    lane (the rows below j of W and Q, w, q, row j of W and Q) over
-    3.35 TB/s; the line also gives the (3j + 4) n of a W that L2 does not
-    keep between the passes."""
+    """K7 (operators/cuda_gcr.gcr_step: the GCR step after the operator
+    apply) against its plain version (gcr_step_plain) at the GCR shapes of
+    the paths (K7_CASES), batch 1 and 12: random bases whose rows below j
+    are filled and the rest zero, every lane going (stop 0).  The error:
+    rows j, x, r and |r| after one step from the same state, the worst
+    relative error of the four.  The times: a step as raw launches
+    captured in a CUDA graph (graph_ms), for the kernel, the plain version
+    and the library call, the sequence the port ran before K7 took the
+    whole step (the j-row torch products through cuBLAS,
+    device_gmres.orthonormalize with the sum over the ranks the identity,
+    then vecdot, the updates, the iteration count, the norm and the stop
+    test).  Bound: (2j + 8) n elements a lane (the rows below j of W and
+    Q, w, q, r and x read; rows j, x and r written) over 3.35 TB/s."""
+    from ddalphaamg_tpu_torch import kernels
     from ddalphaamg_tpu_torch.operators import cuda_gcr
     from ddalphaamg_tpu_torch.solvers import device_gmres
 
@@ -945,8 +992,15 @@ def check_gram_schmidt(results, gen):
         for B in batches:
             W = torch.zeros((B, m, n), dtype=dtype, device="cuda")
             Q = torch.zeros_like(W)
-            w = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
-            q = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
+            real = W.real.dtype
+            base = dict(x=torch.randn((B, n), generator=gen, dtype=dtype, device="cuda"),
+                        r=torch.randn((B, n), generator=gen, dtype=dtype, device="cuda"),
+                        go=torch.ones(B, dtype=torch.bool, device="cuda"),
+                        stop=torch.zeros(B, dtype=real, device="cuda"),
+                        rn=torch.ones(B, dtype=real, device="cuda"),
+                        iters=torch.zeros(B, dtype=torch.long, device="cuda"))
+            base["rz"] = base["r"].clone() if B > 1 else None
+            work = cuda_gcr.scratch(B, m, n, dtype, "cuda")
             filled = 0
             for j in rows:
                 W[:, filled:j] = torch.randn((B, j - filled, n), generator=gen, dtype=dtype,
@@ -954,26 +1008,99 @@ def check_gram_schmidt(results, gen):
                 Q[:, filled:j] = torch.randn((B, j - filled, n), generator=gen, dtype=dtype,
                                              device="cuda") / math.sqrt(n)
                 filled = j
+                w = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
+                q = torch.randn((B, n), generator=gen, dtype=dtype, device="cuda")
                 jt = torch.tensor(j, device="cuda")
-                esize = W.element_size()
-                work = ((2 * j + 4) * n * B * esize, 24 * j * n * B)
+
+                def args(st):
+                    return (W, Q, jt, w, q, st["x"], st["r"], st["rz"], st["go"], st["stop"],
+                            None, st["rn"], st["iters"])
+
+                def kernel(st):
+                    cuda_gcr.gcr_step(*args(st), work)
+
+                def plain(st):
+                    cuda_gcr.gcr_step_plain(*args(st))
+
+                def library(st, j=j):
+                    wo, qo = device_gmres.orthonormalize(W, Q, j, w, q, allsum=lambda a: a)
+                    cuda_gcr.update_step(wo, qo, st["x"], st["r"], st["rz"], st["go"],
+                                         st["stop"], None, st["rn"], st["iters"])
+
+                outs = {}
+                for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+                    st = {k: None if v is None else v.clone() for k, v in base.items()}
+                    fn(st)
+                    outs[name] = (W[:, j].clone(), Q[:, j].clone(), st["x"], st["r"], st["rn"])
+                torch.cuda.synchronize()
+
+                def worst(got, want):
+                    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+                    return max(errs), max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+                rel, abs_err = worst(outs["kernel"], outs["plain"])
+                lib_rel, _ = worst(outs["library"], outs["plain"])
                 tag = "c64" if dtype == torch.complex64 else "c128"
                 name = f"K7 {label} {tag} m={m} j={j} batch {B}"
-                qo, qp = (cuda_gcr.orthonormalize(W, Q, jt, w, q)[1],
-                          cuda_gcr.orthonormalize_plain(W, Q, jt, w, q)[1])
-                q_rel = float((qo - qp).abs().max() / qp.abs().max())
-                if q_rel > TOL[dtype]:
-                    fail(f"{name}: q differs from the plain version by {q_rel:.3e}")
-                compare(results, "K7", name,
-                        lambda: cuda_gcr.orthonormalize(W, Q, jt, w, q)[0],
-                        lambda: cuda_gcr.orthonormalize_plain(W, Q, jt, w, q)[0], dtype, work,
-                        lambda: device_gmres.orthonormalize(W, Q, j, w, q, allsum=lambda a: a)[0])
-                case = results["K7"]["cases"][-1]
-                cold = 1e3 * (3 * j + 4) * n * B * esize / MEM_BYTES_PER_S
-                print(f"    {name}: bound with W read twice {cold:.4f} ms "
-                      f"({100 * cold / case['ms']:.1f} %), q rel err {q_rel:.3e}", flush=True)
-            del W, Q
+                if lib_rel > TOL[dtype]:
+                    fail(f"{name}: the library sequence differs from the plain version by "
+                         f"{lib_rel:.3e}")
+                live = {fn: {k: None if v is None else v.clone() for k, v in base.items()}
+                        for fn in (kernel, plain, library)}
+                ms = graph_ms(lambda: kernel(live[kernel]))
+                plain_ms = graph_ms(lambda: plain(live[plain]), reps=5)
+                lib_ms = graph_ms(lambda: library(live[library]), reps=5)
+                esize = W.element_size()
+                record(results, "K7", name, abs_err, rel, ms, plain_ms, lib_ms, dtype,
+                       ((2 * j + 8) * n * B * esize, (24 * j + 40) * n * B))
+                path = "cluster" if kernels.lib().ddaamg_gcr_path(
+                    n, m, int(dtype == torch.complex128)) == 0 else "grid"
+                results["K7"]["cases"][-1]["design"] = path
+                print(f"    {name}: the {path} design, library rel err {lib_rel:.3e}",
+                      flush=True)
+            del W, Q, work
             torch.cuda.empty_cache()
+
+
+def check_step_launches(gen):
+    """One GCRLanes.step (solvers/device_gmres.py) profiled on the card,
+    after a warm-up step: besides the operator apply (one torch
+    multiplication here) and, at batch 2, the preconditioner (a
+    multiplication and its counters, a fill) and the aux sum (a where and
+    an add), its CUDA kernels are K7's alone, one at 4^4 d 56 (the cluster
+    design) and two at 8^4 d 56 (the grid design)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddalphaamg_tpu_torch.solvers.device_gmres import GCRLanes
+
+    def prec(v):
+        return 2 * v, torch.ones((v.shape[0], 3), dtype=torch.float64, device=v.device)
+
+    def op(v):
+        return v * 2
+
+    for n, design, k7 in ((4**4 * 56, "cluster", 1), (8**4 * 56, "grid", 2)):
+        for B in (1, 2):
+            b = torch.randn((B, n), generator=gen, dtype=torch.complex64, device="cuda")
+            st = GCRLanes(b, 10, 1e-12, n_aux=3 if B > 1 else 0)
+            p = prec if B > 1 else None
+            st.restart(op)
+            st.step(0, op, p)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                st.step(1, op, p)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            ours = [x for x in names if KERNEL_EVENTS["K7"].search(x)]
+            others = [x.split("(")[0][:60] for x in names if not KERNEL_EVENTS["K7"].search(x)]
+            allowed = 1 + (4 if B > 1 else 0)
+            print(f"  GCRLanes.step {n} elements batch {B} ({design}): K7 {len(ours)} kernel(s), "
+                  f"{len(others)} other(s) (operator{', preconditioner, aux sum' if B > 1 else ''}"
+                  f": {allowed} allowed): {others}", flush=True)
+            if len(ours) != k7 or len(others) > allowed:
+                fail(f"GCRLanes.step at n = {n}, batch {B} launched {len(ours)} K7 kernels "
+                     f"(want {k7}) and {len(others)} others (at most {allowed})")
 
 
 def check_halo_kernels(results, gen, glat, d):
@@ -1591,8 +1718,15 @@ def profiled(name, t0, what, run, unprofiled_s, lattice_of=None):
     device busy time and its share of that wall and of unprofiled_s (the
     same run's wall time without the profiler), and the device time by
     kind; returns them as a dict."""
+    from ddalphaamg_tpu_torch import kernels
+
+    steps = kernels.counts()["K7"]
     wall, busy, table = device_time_by_kernel(run, lattice_of)
+    steps = kernels.counts()["K7"] - steps      # GCR iterations on one rank
     spans = table.get("(within) graph replays", (0, 0.0))[1]
+    if steps and "K7" in table and not spans:
+        print(f"[{name}] K7: {table['K7'][0]} CUDA kernels for {steps} GCR iterations "
+              f"({table['K7'][0] / steps:.3f} a step)", flush=True)
     replays = (f"; the graph replays span {spans:.1f} ms ({100 * spans / wall:.1f} % of the "
                f"profiled wall, {100 * spans / (1e3 * unprofiled_s):.1f} % of the unprofiled; "
                "the profiler sees only part of the kernels inside them)" if spans else "")
@@ -1600,7 +1734,8 @@ def profiled(name, t0, what, run, unprofiled_s, lattice_of=None):
           f"({100 * busy / wall:.1f} % of it; {100 * busy / (1e3 * unprofiled_s):.1f} % of the "
           f"unprofiled {1e3 * unprofiled_s:.1f} ms){replays}; " + "; ".join(
               f"{k} {n} events {ms:.1f} ms" for k, (n, ms) in table.items()))
-    return dict(wall_ms=wall, busy_ms=busy, unprofiled_ms=1e3 * unprofiled_s, by_kind=table)
+    return dict(wall_ms=wall, busy_ms=busy, unprofiled_ms=1e3 * unprofiled_s, by_kind=table,
+                gcr_steps=steps)
 
 
 def rough32_path(U, field_s):

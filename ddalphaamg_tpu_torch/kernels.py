@@ -73,10 +73,11 @@ KERNELS = {
     "K6": Kernel("K6 bf16 batched matvec", "cuda", "ddalphaamg_tpu_torch/csrc/dense.cu",
                  "ddalphaamg_tpu/operators/stencil.py:710, :727 and "
                  "ddalphaamg_tpu/smoothers/sap.py:193 (XLA einsums, no pallas_call)"),
-    "K7": Kernel("K7 Gram-Schmidt with the row count read from the device", "cuda",
+    "K7": Kernel("K7 GCR step (Gram-Schmidt, alpha, x / r updates, norm, stop test) with "
+                 "the row count read from the device", "cuda",
                  "ddalphaamg_tpu_torch/csrc/gcr.cu",
-                 "ddalphaamg_tpu/solvers/device_gmres.py:111-119 (XLA einsums over all m "
-                 "rows inside the lax.while_loop, no pallas_call)"),
+                 "ddalphaamg_tpu/solvers/device_gmres.py:106-136 (XLA einsums over all m "
+                 "rows and fused updates inside the lax.while_loop, no pallas_call)"),
     "G": Kernel("G CUDA graph replays: the coarsest GCR, the inner restart, the cycle "
                 "(one-body WHILE loops with a device-side index)",
                 "cuda", "ddalphaamg_tpu_torch/csrc/graph.cu",
@@ -174,9 +175,13 @@ _SIGNATURES = {
     "ddaamg_coarse_halo_bf16": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ddaamg_dense_bf16_mrhs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ddaamg_gcr_chunks": [_L],
-    "ddaamg_gcr_orthonormalize_c64": [_P] * 10 + [_I, _I, _L, _P],
-    "ddaamg_gcr_orthonormalize_c128": [_P] * 10 + [_I, _I, _L, _P],
+    "ddaamg_gcr_path": [_L, _I, _I],
+    "ddaamg_gcr_cluster_fits": [_L, _I, _I],
+    "ddaamg_gcr_cluster_shape": [_L, _P, _P, _P],
+    "ddaamg_gcr_work_bytes": [_I, _I, _L, _I],
+    "ddaamg_gcr_sync_words": [_I, _I],
+    "ddaamg_gcr_step_c64": [_P] * 15 + [_I, _I, _L, _I, _P],
+    "ddaamg_gcr_step_c128": [_P] * 15 + [_I, _I, _L, _I, _P],
     "ddaamg_graph_begin": [_P, _P],
     "ddaamg_graph_loop": [_P, _P, _P, _I, _I, _P],
     "ddaamg_graph_loop_end": [_P, _P, _P, _P, _I, _I, _P],
@@ -184,6 +189,8 @@ _SIGNATURES = {
     "ddaamg_graph_launch": [_P, _P],
     "ddaamg_graph_destroy": [_P, _P],
 }
+
+_RESTYPES = {"ddaamg_gcr_work_bytes": ctypes.c_longlong}   # the rest return an int
 
 _lib = None
 build_seconds = 0.0
@@ -247,7 +254,7 @@ def lib():
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
 

@@ -30,9 +30,12 @@ nested in them.
 The orthogonalization (the Krylov recurrence itself) runs in the field's own
 dtype; TF32 must be off for it (utils.pin_full_precision), because rounded
 coefficients floor the true residual an inner sweep can reach
-(docs/iteration_parity.md).  On one rank K7 computes it with the row
-index j on the device (operators/cuda_gcr.py), reading only the rows
-below j, in the same summation order for the host loop and a replay.
+(docs/iteration_parity.md).  On one rank K7 computes the whole iteration
+after the operator apply (operators/cuda_gcr.py: the Gram-Schmidt with the
+row index j on the device, reading only the rows below j, alpha, the x / r
+updates, the norm and the stop test), in the same summation order for the
+host loop and a replay; its plain version is the torch sequence a slab
+runs.
 
 On a sharded level every inner product and norm is a global sum over the
 ranks (allsum, the stencil's all-reduce), one all-reduce for the [B] or
@@ -48,6 +51,7 @@ from typing import Callable, Optional
 import torch
 
 from ..operators import cuda_gcr
+from ..operators.cuda_gcr import lane_norm
 
 COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
 
@@ -82,30 +86,20 @@ def _prec_out(prec, r):
     return out, None
 
 
-def _norm(a, allsum):
-    """|a_i| of every lane i of flattened [B, n] fields (over all ranks)."""
-    if allsum is None:
-        return torch.linalg.vector_norm(a, dim=-1)
-    return torch.sqrt(allsum(torch.linalg.vector_norm(a, dim=-1) ** 2))
-
-
-def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j, w: torch.Tensor,
-                   q: torch.Tensor, allsum: Optional[Callable] = None):
+def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j: int, w: torch.Tensor,
+                   q: torch.Tensor, allsum: Callable):
     """Classical Gram-Schmidt of each lane's w [B, n] against the first j
-    rows of its W [B, m, n], applied alike to q, then normalization by |w|
-    (a zero w stays zero); the results are written to row j of W and Q and
-    returned.  On one rank j is a device int64 scalar and K7 computes it
-    (operators/cuda_gcr.py: its plain version on the CPU).  On a slab
-    (allsum: the sum over the ranks) j is a Python int and the products
-    run over the j written rows, with one all-reduce for h."""
-    if allsum is None:
-        return cuda_gcr.orthonormalize(W, Q, j, w, q)
+    rows of its W [B, m, n] on a slab (allsum: the sum over the ranks),
+    applied alike to q, then normalization by |w| (a zero w stays zero);
+    the results are written to row j of W and Q and returned.  j is a
+    Python int: the products run over the j written rows, with one
+    all-reduce for h."""
     if j:
         h = allsum(W[:, :j].conj() @ w.unsqueeze(-1))          # [B, j, 1]: <W_i, w>
         h = h.transpose(-1, -2)
         w = w - (h @ W[:, :j]).squeeze(1)
         q = q - (h @ Q[:, :j]).squeeze(1)
-    wn = _norm(w, allsum)
+    wn = lane_norm(w, allsum)
     inv = wn.masked_fill(wn == 0, 1.0).reciprocal()[:, None]
     torch.mul(w, inv, out=W[:, j])
     torch.mul(q, inv, out=Q[:, j])
@@ -128,7 +122,7 @@ class GCRLanes:
         B = self.B = b.shape[0]
         self.allsum, self.active = allsum, active
         self.bf = b.reshape(B, -1)
-        bnorm = _norm(self.bf, allsum)
+        bnorm = lane_norm(self.bf, allsum)
         self.bnorm = bnorm.masked_fill(bnorm == 0, 1.0)
         if isinstance(tol, torch.Tensor):
             self.stop = tol.to(self.bnorm) * self.bnorm
@@ -141,24 +135,29 @@ class GCRLanes:
         self.iters = torch.zeros(B, dtype=torch.long, device=b.device)
         self.aux_sum = (torch.zeros((B, n_aux), dtype=COUNTER_DTYPE, device=b.device)
                         if n_aux else None)
+        # what a frozen lane's aux becomes at B > 1 (a tensor: torch.where
+        # would fill a Python 0 into a device scalar at every step)
+        self._no_aux = torch.zeros((), dtype=COUNTER_DTYPE, device=b.device) if B > 1 else None
         # row j of every lane is written at iteration j; K7 reads no row from
         # j on, its plain version multiplies them by a zero h (zeros here:
         # fresh memory could hold a NaN, and 0 * NaN is NaN)
         self.W = torch.zeros((B, m, self.bf.shape[1]), dtype=b.dtype, device=b.device)
         self.Q = torch.zeros_like(self.W)
+        # the preconditioner's input at B > 1: r masked by go (a frozen lane
+        # enters as zeros), set by the restart and by every step
+        self.rz = torch.zeros_like(self.bf) if B > 1 else None
+        self.work = (cuda_gcr.scratch(B, m, self.bf.shape[1], b.dtype, b.device)
+                     if allsum is None else None)
         self._rows = None       # the row indices on the device, for a host j
 
     def _stop_test(self):
         """go = |r| >= tol |b| (and active): a frozen lane keeps its |r|,
-        hence stays frozen."""
-        torch.ge(self.rn, self.stop, out=self.go)
-        if self.active is not None:
-            self.go &= self.active
+        hence stays frozen; at B > 1 rz = go ? r : 0."""
+        cuda_gcr.stop_test(self.rn, self.stop, self.active, self.go, self.r, self.rz)
 
     def _row(self, j):
-        """Row j as orthonormalize takes it: a device index on one rank (a
-        host j through a table made at the first host step), the int on a
-        slab."""
+        """Row j as the step takes it: a device index on one rank (a host j
+        through a table made at the first host step), the int on a slab."""
         if self.allsum is not None or isinstance(j, torch.Tensor):
             return j
         if self._rows is None:
@@ -169,38 +168,34 @@ class GCRLanes:
         """r = b - A x for every lane, its norm and the go mask."""
         torch.sub(self.bf, apply_op(self.x.reshape(self.shape)).reshape(self.B, -1),
                   out=self.r)
-        self.rn.copy_(_norm(self.r, self.allsum))
+        self.rn.copy_(lane_norm(self.r, self.allsum))
         self._stop_test()
 
     def step(self, j, apply_op: Callable, prec: Optional[Callable] = None):
         """Iteration j (a Python int, or a device int64 scalar in a graph's
-        loop) of a restart for the lanes that go."""
+        loop) of a restart for the lanes that go: on one rank the operator
+        apply, then K7 (the rest of the iteration, operators/cuda_gcr.py),
+        on a slab the same in torch with all-reduced products."""
         B = self.B
-        # a frozen lane enters as zeros: its alpha is 0, so its x and r keep
-        # their bits, and a nested solve freezes it at once (one lane
+        # a frozen lane enters as zeros (rz): its alpha is 0, so its x and r
+        # keep their bits, and a nested solve freezes it at once (one lane
         # iterates only while it goes)
-        gcol = self.go[:, None] if B > 1 else None
-        r_in = self.r if gcol is None else torch.where(gcol, self.r, 0)
+        r_in = self.r if self.rz is None else self.rz
         q, aux = _prec_out(prec, r_in.reshape(self.shape))
-        w = apply_op(q).reshape(B, -1)
-        w, q = orthonormalize(self.W, self.Q, self._row(j), w, q.reshape(B, -1), self.allsum)
-        # <w, r> as a product and a sum: a batched complex64 matrix
-        # product [1, n] @ [n, 1] carries relative errors of 1e-5 at
-        # n = 12 * 16^4 on the card, which let the residual recurrence
-        # drift from the true residual
-        alpha = torch.linalg.vecdot(w, r_in)[:, None]
-        if self.allsum is not None:
-            alpha = self.allsum(alpha)
-        self.x += alpha * q
-        self.r -= alpha * w
-        self.iters += self.go
-        if aux is not None:
-            aux = aux if gcol is None else torch.where(gcol, aux, 0)
+        if aux is not None:             # with this iteration's go, before the step
+            aux = aux if self.rz is None else torch.where(self.go[:, None], aux, self._no_aux)
             if self.aux_sum is None:        # the host loop: sized by the first aux
                 self.aux_sum = torch.zeros_like(aux)
             self.aux_sum += aux
-        self.rn.copy_(_norm(self.r, self.allsum))
-        self._stop_test()
+        w = apply_op(q).reshape(B, -1)
+        q = q.reshape(B, -1)
+        if self.allsum is None:
+            cuda_gcr.gcr_step(self.W, self.Q, self._row(j), w, q, self.x, self.r, self.rz,
+                              self.go, self.stop, self.active, self.rn, self.iters, self.work)
+            return
+        w, q = orthonormalize(self.W, self.Q, j, w, q, self.allsum)
+        cuda_gcr.update_step(w, q, self.x, self.r, self.rz, self.go, self.stop, self.active,
+                             self.rn, self.iters, self.allsum)
 
     def result(self):
         """(x [B, *shape], iterations [B], final squared relative residual

@@ -105,8 +105,11 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_coarse.coarse_apply_halo(coarse.compress(blocks), v, lat, {1: (face, face)})
     cuda_dense.matvec(coarse.compress(blocks[0, None, :, :, 0]), v[None, :, 0])
     W = torch.zeros(1, 3, 4 * V, dtype=torch.complex64)
-    cuda_gcr.orthonormalize(W, torch.zeros_like(W), torch.tensor(0), v.reshape(1, -1),
-                            v.reshape(1, -1))
+    one = torch.ones(1)
+    cuda_gcr.gcr_step(W, torch.zeros_like(W), torch.tensor(0), v.reshape(1, -1),
+                      v.reshape(1, -1), torch.zeros(1, 4 * V, dtype=torch.complex64),
+                      v.reshape(1, -1).clone(), None, torch.ones(1, dtype=torch.bool), one,
+                      None, one.clone(), torch.zeros(1, dtype=torch.long))
     assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
     assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6",
                                     "K7", "G"}

@@ -8,10 +8,10 @@ body recorded once, host reads refused, replayed on the host):
       host loop's (device_gcr's) bits for the fine, the K-cycle and the
       coarsest GCR, at two and three levels, batch 1 and batch 2 with a
       zero lane;
-  (b) K7's plain version against the JAX package's masked einsum
-      Gram-Schmidt (device_gmres.py:111-119) on numpy inputs from a seed,
-      j = 0, 1 and m - 1, complex64 (1e-6) and complex128 (1e-13), rows of
-      an earlier restart above j ignored;
+  (b) the Gram-Schmidt of K7's plain version against the JAX package's
+      masked einsum Gram-Schmidt (device_gmres.py:111-119) on numpy
+      inputs from a seed, j = 0, 1 and m - 1, complex64 (1e-6) and
+      complex128 (1e-13), rows of an earlier restart above j ignored;
   (c) the inner-restart program against the JAX Multigrid's
       _inner_restart_impl on the same hierarchy (the same field and
       injected test vectors): equal iterations and counters, z within 1e-9
@@ -211,8 +211,8 @@ def test_k7_plain_matches_the_jax_gram_schmidt(dtype, tol, j):
     tW, tQ = torch.tensor(W), torch.tensor(Q)
     tW[:, j + 1:] = 5.0                     # rows of an earlier restart: ignored
     tQ[:, j + 1:] = -3.0
-    wo, qo = cuda_gcr.orthonormalize(tW, tQ, torch.tensor(j), torch.as_tensor(w),
-                                     torch.as_tensor(q))
+    wo, qo = cuda_gcr.orthonormalize_plain(tW, tQ, torch.tensor(j), torch.as_tensor(w),
+                                           torch.as_tensor(q))
     for b in range(B):
         ww, wq = _jax_gram_schmidt(W[b], Q[b], w[b], q[b], j)
         assert rel_err(wo[b].numpy(), ww) < tol and rel_err(qo[b].numpy(), wq) < tol
@@ -307,7 +307,7 @@ def counting(monkeypatch):
             (cuda_coarse, "coarse_apply",
              lambda blocks, *a: "K4-bf16" if blocks.dtype == torch.bfloat16 else "K4"),
             (cuda_dense, "matvec", lambda A, *a: "K6" if A.dtype == torch.bfloat16 else None),
-            (cuda_gcr, "orthonormalize", lambda *a: "K7")):
+            (cuda_gcr, "gcr_step", lambda *a: "K7")):
         monkeypatch.setattr(mod, name, count(getattr(mod, name), key_of))
 
 

@@ -581,32 +581,167 @@ def test_coarsest_graphs_follow_the_hierarchy(cuda):
     assert info2.converged and s.true_residual(x2, rhs) < 1e-10
 
 
+def _gcr_state(B, n, dtype, gen, cuda, frozen=False):
+    """A GCR state of B lanes: x, r, |r|, go, a stop below |r| (the lanes
+    go on), iters, rz = r at B > 1; with `frozen` lanes 1 and 2 are frozen
+    (go false, rz zero): lane 1 converged (its stop above its |r|), lane 2
+    masked off by active."""
+    x, r = _cplx((B, n), gen, dtype, cuda), _cplx((B, n), gen, dtype, cuda)
+    rn = torch.linalg.vector_norm(r, dim=-1)
+    go = torch.ones(B, dtype=torch.bool, device=cuda)
+    stop = rn * 1e-3
+    active = None
+    if frozen:
+        go[1:3] = False
+        stop[1] = 2 * rn[1]
+        active = torch.ones(B, dtype=torch.bool, device=cuda)
+        active[2] = False
+    rz = torch.where(go[:, None], r, 0) if B > 1 else None
+    return dict(x=x, r=r, rz=rz, go=go, stop=stop, active=active, rn=rn,
+                iters=torch.zeros(B, dtype=torch.long, device=cuda))
+
+
+def _gcr_run(W, Q, j, w, q, state, path=None, plain=False, alias=False):
+    """One K7 step (or its plain version) on copies; returns the copies.
+    alias: q is the copy's residual input (r at batch 1, else rz), as in a
+    GCR without a preconditioner."""
+    W, Q = W.clone(), Q.clone()
+    st = {k: None if v is None else v.clone() for k, v in state.items()}
+    if alias:
+        q = st["r"] if st["rz"] is None else st["rz"]
+    args = (W, Q, j, w, q, st["x"], st["r"], st["rz"], st["go"], st["stop"], st["active"],
+            st["rn"], st["iters"])
+    if plain:
+        cuda_gcr.gcr_step_plain(*args)
+    else:
+        cuda_gcr.gcr_step(*args, path=path)
+    torch.cuda.synchronize()
+    return dict(W=W, Q=Q, **st)
+
+
+def _check_step(got, want, j, dtype):
+    """K7 against its plain version: rows j, x, r, rz within the dtype's
+    tolerance, |r| too, iters and go equal, every other row untouched."""
+    for k in ("x", "r", "rz"):
+        if want[k] is not None and want[k].abs().max() > 0:
+            assert _rel(got[k], want[k]) <= TOL[dtype], k
+    assert _rel(got["W"][:, j], want["W"][:, j]) <= TOL[dtype]
+    assert _rel(got["Q"][:, j], want["Q"][:, j]) <= TOL[dtype]
+    assert _rel(got["rn"], want["rn"]) <= TOL[dtype]
+    assert torch.equal(got["iters"], want["iters"]) and torch.equal(got["go"], want["go"])
+    for key in ("W", "Q"):
+        assert torch.equal(got[key][:, :j], want[key][:, :j])
+        assert torch.equal(got[key][:, j + 1:], want[key][:, j + 1:])
+
+
+# chip_smoke.K7_CASES' shapes (n, m, batch) of the paths' GCRs and an odd n
+# (single complex64 loads) in complex64; the shapes K7 was tested at as a
+# Gram-Schmidt alone, in complex64 and complex128; each on the grid design
+# and, where its slices fit, the cluster design
+K7_SHAPES = [(786432, 50, 1), (786432, 50, 12), (229376, 5, 1), (229376, 5, 12),
+             (14336, 100, 1), (14336, 100, 12), (229376, 100, 1), (229376, 100, 12),
+             (2**20 + 3, 7, 2)]
+K7_BOTH = [(14336, 100, 1), (14336, 100, 12), (14336, 100, 3), (229376, 5, 3),
+           (786432, 50, 1), (2**20 + 3, 7, 2)]
+K7_RUNS = sorted({(n, m, B, path, dtype)
+                  for shapes, dtypes in ((K7_SHAPES, (torch.complex64,)),
+                                         (K7_BOTH, (torch.complex64, torch.complex128)))
+                  for n, m, B in shapes for dtype in dtypes
+                  for path in ("grid", "cluster") if path == "grid" or n < 2**17},
+                 key=str) + [(9999, 7, 3, "cluster", torch.complex64),
+                             (14336, 100, 12, None, torch.complex64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n, m, B", [(14336, 100, 1), (14336, 100, 12), (229376, 5, 3),
-                                     (786432, 50, 1), (2**20 + 3, 7, 2)])
-@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-def test_gram_schmidt_kernel_matches_plain(cuda, dtype, n, m, B):
-    """K7 against its plain version at rows j = 0, 1, m // 2 and m - 1 of
-    bases whose rows from j + 1 on hold another restart's values (K7 reads
-    none of them); the written rows and the outputs agree, and repeated
-    launches give the same bits."""
+@pytest.mark.parametrize("n, m, B, path, dtype", K7_RUNS)
+def test_gram_schmidt_kernel_matches_plain(cuda, dtype, n, m, B, path):
+    """K7 (the whole GCR step) against its plain version at rows j = 0, 1,
+    m // 2 and m - 1 of bases whose rows from j + 1 on hold another
+    restart's values (K7 reads none of them), lanes that go, a stopped and
+    a masked-off lane (B >= 3); two runs give the same bits; a zero w
+    keeps scale 1 (zero rows, x and r kept)."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     W = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
     Q = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
     for j in sorted({0, 1, m // 2, m - 1}):
         w, q = _cplx((B, n), gen, dtype, cuda), _cplx((B, n), gen, dtype, cuda)
+        state = _gcr_state(B, n, dtype, gen, cuda, frozen=B >= 3)
+        if B >= 3:
+            w[1:3] = 0                  # frozen lanes enter as zeros
+            q[1:3] = 0
         jt = torch.tensor(j, device=cuda)
-        Wp, Qp = W.clone(), Q.clone()
-        wo, qo = cuda_gcr.orthonormalize(W, Q, jt, w, q)
-        wp, qp = cuda_gcr.orthonormalize_plain(Wp, Qp, jt, w, q)
-        assert _rel(wo, wp) <= TOL[dtype] and _rel(qo, qp) <= TOL[dtype]
-        assert torch.equal(W[:, j], wo) and torch.equal(Q[:, j], qo)
-        assert torch.equal(W[:, :j], Wp[:, :j]) and torch.equal(W[:, j + 1:], Wp[:, j + 1:])
-        assert all(torch.equal(a, b) for a, b in zip(cuda_gcr.orthonormalize(W, Q, jt, w, q),
-                                                       (wo, qo)))
-    zero = torch.zeros((B, n), dtype=dtype, device=cuda)        # a zero w stays zero
-    wo, qo = cuda_gcr.orthonormalize(W, Q, torch.tensor(0, device=cuda), zero, zero)
-    assert not wo.any() and not qo.any()
+        got = _gcr_run(W, Q, jt, w, q, state, path)
+        _check_step(got, _gcr_run(W, Q, jt, w, q, state, plain=True), j, dtype)
+        again = _gcr_run(W, Q, jt, w, q, state, path)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got.values(), again.values()))
+        if B >= 3:                      # the frozen lanes keep their bits, rows zero
+            for k in ("x", "r", "rn", "iters"):
+                assert torch.equal(got[k][1:3], state[k][1:3])
+            assert not got["W"][1:3, j].any() and not got["rz"][1:3].any()
+        W = got["W"]
+        Q = got["Q"]
+    zero = torch.zeros((B, n), dtype=dtype, device=cuda)
+    state = _gcr_state(B, n, dtype, gen, cuda)
+    got = _gcr_run(W, Q, torch.tensor(0, device=cuda), zero, zero, state, path)
+    assert not got["W"][:, 0].any() and not got["Q"][:, 0].any()
+    assert torch.equal(got["x"], state["x"]) and torch.equal(got["r"], state["r"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m, B, path, dtype",
+                         [(n, 100, B, path, dtype) for n in (14336, 229376) for B in (1, 3)
+                          for path in ("cluster", "grid") if path == "grid" or n < 2**17
+                          for dtype in (torch.complex64, torch.complex128)])
+def test_gcr_step_with_q_aliasing_the_residual(cuda, n, m, B, path, dtype):
+    """The coarsest GCR has no preconditioner: its q is r itself (batch 1)
+    or rz (batch > 1), which K7 reads and writes in the same launch.  Each
+    design reads q before it writes r or rz (module note of csrc/gcr.cu);
+    the step agrees with the plain version on the same aliased state, a
+    stopped and a masked-off lane (B = 3) keep their bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    W = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
+    Q = _cplx((B, m, n), gen, dtype, cuda) / n ** 0.5
+    for j in (0, 1, m // 2, m - 1):
+        w = _cplx((B, n), gen, dtype, cuda)
+        state = _gcr_state(B, n, dtype, gen, cuda, frozen=B >= 3)
+        if B >= 3:
+            w[1:3] = 0                  # A rz of the frozen lanes
+        jt = torch.tensor(j, device=cuda)
+        got = _gcr_run(W, Q, jt, w, None, state, path, alias=True)
+        _check_step(got, _gcr_run(W, Q, jt, w, None, state, plain=True, alias=True), j, dtype)
+        if B >= 3:
+            for k in ("x", "r", "rn", "iters"):
+                assert torch.equal(got[k][1:3], state[k][1:3])
+        W, Q = got["W"], got["Q"]
+
+
+@pytest.mark.gpu
+def test_gcr_step_launches_and_captures(cuda):
+    """One K7 launch a step on either design (the counters), and a K7 step
+    inside a captured WHILE loop (csrc/graph.cu) gives the host loop's
+    bits, cluster and grid designs."""
+    from ddalphaamg_tpu_torch.solvers.cuda_graph import GraphProgram
+    from ddalphaamg_tpu_torch.solvers.device_gmres import HostControl, gcr_program
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for n, B in ((14336, 1), (14336, 3), (229376, 1), (229376, 3)):
+        A = _cplx((n // 64, 64, 64), gen, torch.complex64, cuda) / 64 + torch.eye(
+            64, dtype=torch.complex64, device=cuda)
+
+        def apply_op(v):                # a block-diagonal operator on [B, n]
+            return torch.einsum("kij,bkj->bki", A, v.reshape(v.shape[0], -1, 64)).reshape(
+                v.shape)
+
+        b = _cplx((B, n), gen, torch.complex64, cuda)
+        kernels.reset_counts()
+        want = gcr_program(HostControl(), apply_op, b, 20, 1e-6)
+        assert kernels.counts()["K7"] == int(want[1].max())
+        g = GraphProgram(lambda ctl, b: dict(zip("xir", gcr_program(ctl, apply_op, b, 20,
+                                                                    1e-6)[:3])),
+                         {"b": b.clone()}, cuda)
+        got = g(b=b)
+        assert all(torch.equal(got[k], v) for k, v in zip("xir", want[:3]))
+        g.close()
 
 
 @pytest.mark.gpu
