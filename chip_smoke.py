@@ -91,12 +91,17 @@ Phases, one result line each (or a few), in order:
               pool's bytes, and the least time of the call's work (its K4
               applies and vector work)
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
-              at full parameters (plaquette 1.7878261039088 to 1e-10, setup,
+              at full parameters (the configuration read by the native
+              reader, native.py, or the phase fails; plaquette
+              1.7878261039088 to 1e-10; setup with its phases profiled,
+              profiling.PROF: the seconds of each by depth and what is
+              left outside them,
               solve of a right-hand side of ones, exact relative residual
               recomputed in complex128 from the returned x, < 1e-10 in <= 12
               outer iterations), with the launch count of each kernel in
               that run (K1-K4 must be > 0) and in its setup (the bootstrap
-              runs the cycles of a level's 28 test vectors as one batch);
+              runs the cycles of a level's 28 test vectors as one batch,
+              each sweep one replay of a device program);
               then a second, warm solve of the same right-hand side, timed
               for phase 7; the graphs' captures (the setup's beside PR
               13's), replays and pools, and the warm solve profiled twice
@@ -122,6 +127,14 @@ Phases, one result line each (or a few), in order:
               every GCR a one-body loop): bit-equal z / x and counters,
               every kernel's launches within 0.1 %, the ms of each, the
               capture's seconds and loop bodies, the pool's bytes
+  4b3. setup-graph  rough16's bootstrap setup with its sweeps as device
+              programs (mg/programs.SetupCycleGraph: one capture a depth
+              serves the whole setup, re_setup rewriting what they read)
+              and with host loops, in turns (host, programs, programs,
+              host), and its interpolation-1 setup (TwoLevelUpdateGraph)
+              both ways: every level's test vectors bit-equal, every
+              kernel's launches within 0.1 %; the setups' seconds,
+              captures, capture seconds and the largest pools held
   4c. methods (run after phase 4b, on phase 4's solver for the API runs)
               the other methods and setups on rough16 at full size, the
               ini otherwise, each run with its outer iterations, exact
@@ -213,8 +226,12 @@ Phases, one result line each (or a few), in order:
               it), anti-periodic in time, rough16's parameters with the
               lattices doubled (32^4 -> 16^4 -> 8^4, 28 / 28 test vectors,
               setup 4 / 3), no option keys: field seconds and plaquette,
-              set_conf, setup and slim_for_solve with the device memory after
-              each, the lanes of every setup chunk, a cold and a warm solve,
+              set_conf, setup (its phases profiled as in phase 4, the
+              programs' pools) and slim_for_solve with the device memory
+              after each, the lanes of every setup chunk, one more depth-0
+              bootstrap sweep on the final hierarchy as replays and with
+              host loops at the same chunk (x and the collected solutions
+              bit-equal, launches within 0.1 %), a cold and a warm solve,
               iterations, exact relres < 1e-10 (complex128), the options
               chosen (bf16 on, coarsest direct off: n = 229,376), cap and
               clip, <= 16 outer iterations, the launches by kernel, the
@@ -242,6 +259,7 @@ line; so does a machine without CUDA.
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 import json
 import math
@@ -299,6 +317,7 @@ KERNEL_EVENTS = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true")
                  "K7": re.compile(r"gcr_(cluster_step|dots|update)"),
                  "G loops": re.compile(r"loop_(start|next)_kernel")}
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "K7", "G"),
+                "setup-graph": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
                 "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "K7", "G"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5"),
@@ -642,11 +661,12 @@ ROUGH32_SHAPES = (
     + [(k, ROUGH16, 56, B, torch.complex64, v)
        for k in ("K4", "K4-bf16") for B in BATCHES for v in (FULL, MASKED)]
     + [("K4", ROUGH16, 56, GALERKIN_BATCH, torch.complex64, MASKED)])
-# above this many bytes of inputs stacked for it, a row's library call runs
-# over chunks of lanes of at most LIBRARY_CHUNK_BYTES stacked, its time the
-# sum (the nine neighbour fields of K1 / K2 at 32^4 beside the 12 x 12 hop
-# matrices; the stacking holds the fields twice)
-LIBRARY_MAX_BYTES = 24 * 2**30
+# above this many bytes of inputs stacked for it (or a third of the card's
+# free memory), a row's library call runs over chunks of lanes of at most
+# LIBRARY_CHUNK_BYTES stacked, its time the sum (the nine neighbour fields of
+# K1 / K2 at 32^4 beside the 12 x 12 hop matrices; the stacking holds the
+# fields twice)
+LIBRARY_MAX_BYTES = 12 * 2**30
 LIBRARY_CHUNK_BYTES = 6 * 2**30
 
 
@@ -741,7 +761,7 @@ def check_rough32_kernels(results, gen, U32, m0, csw, shapes):
     K4-bf16 on random blocks at 16^4 (bf16: the same blocks rounded).  The
     plain version runs over groups of lanes (by_lanes); the library call of
     K1 / K2 over chunks of lanes where its stacked inputs would pass
-    LIBRARY_MAX_BYTES."""
+    LIBRARY_MAX_BYTES or a third of the card's free memory."""
     from ddalphaamg_tpu_torch.geometry import Geometry
     from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, cuda_dslash, fast
     from ddalphaamg_tpu_torch.operators.stencil import WilsonStencilSoA, herm_inv
@@ -767,8 +787,10 @@ def check_rough32_kernels(results, gen, U32, m0, csw, shapes):
 
             def library(*a, **k):
                 """dslash_library over phi, in chunks of `per` lanes where
-                its stacked inputs would pass LIBRARY_MAX_BYTES."""
-                if 9 * nbytes(phi) <= LIBRARY_MAX_BYTES:
+                its stacked inputs would pass LIBRARY_MAX_BYTES or a third
+                of the card's free memory."""
+                limit = min(LIBRARY_MAX_BYTES, torch.cuda.mem_get_info(dev)[0] // 3)
+                if 9 * nbytes(phi) <= limit:
                     return dslash_library(*a[:1], phi, *a[1:], **k)
                 return [(lambda l0=l0: dslash_library(*a[:1], phi[l0:l0 + per], *a[1:], **k),
                          (l0, min(B, l0 + per))) for l0 in range(0, B, per)]
@@ -1332,10 +1354,38 @@ def graph_path(results):
         graph.close()
 
 
+@contextlib.contextmanager
+def setup_profile():
+    """The profiler on (profiling.PROF, a synchronization at the end of every
+    region) for the block; yields the setup phases it recorded, {"depth d:
+    name": (seconds, count)}, filled at the block's end."""
+    from ddalphaamg_tpu_torch.profiling import PROF
+
+    split = {}
+    PROF.reset()
+    PROF.enabled, PROF.sync = True, True
+    try:
+        yield split
+    finally:
+        PROF.enabled = False
+        split.update({f"depth {d}: {name}": (e.time, e.count)
+                      for (d, name), e in sorted(PROF.entries.items())
+                      if name.startswith("setup:")})
+        PROF.reset()
+
+
+def split_text(split, total_s):
+    """A setup's phases (setup_profile) and what is left of total_s."""
+    rest = total_s - sum(t for t, _ in split.values())
+    return "; ".join(f"{k} {t:.3f} s ({n}x)" for k, (t, n) in split.items()) + (
+        f"; outside them {rest:.3f} s")
+
+
 def main_path():
     import numpy as np
 
-    from ddalphaamg_tpu_torch import api, config, kernels
+    from ddalphaamg_tpu_torch import api, config, kernels, native
+    from ddalphaamg_tpu_torch import io as dio
 
     params = rough16_params()
     torch.cuda.reset_peak_memory_stats()
@@ -1343,13 +1393,20 @@ def main_path():
     t0 = time.perf_counter()
     solver = api.Solver(params, device="cuda")
     plaq, header = solver.read_conf()
-    phase("solve", t0, f"plaquette {plaq:.13f} (file {header:.13f})")
+    phase("solve", t0, f"plaquette {plaq:.13f} (file {header:.13f}), read by the "
+          f"{dio.last_reader} reader")
     if abs(plaq - PLAQ) > 1e-10:
         fail(f"plaquette {plaq:.13f} != {PLAQ}")
-    status = solver.setup()
+    if dio.last_reader != "native":
+        fail(f"the {dio.last_reader} reader read the configuration, not the native one "
+             f"({native.error})")
+    with setup_profile() as split:
+        status = solver.setup()
     at_setup = kernels.counts()
-    phase("solve", t0, f"setup {status.setup_time:.3f} s, peak device memory "
+    phase("solve", t0, f"setup {status.setup_time:.3f} s (its phases profiled, a "
+          f"synchronization at the end of each), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase("solve", t0, "setup phases: " + split_text(split, status.setup_time))
     graph_stats("solve", t0, solver, " of the setup", "13 captures, 1.07-1.75 s")
     phase("solve", t0, "launches in the setup (a level's test-vector cycles as one "
           "batch) " + ", ".join(f"{k} {n}" for k, n in at_setup.items()))
@@ -1475,6 +1532,54 @@ def inner_graph_path(name, solver, batches=(1,)):
                   f"host loops {host_ms:.3f} ms, one replay {ms:.3f} ms; capture "
                   f"{g.graph.capture_seconds:.3f} s ({len(g.graph.loops)} loop bodies), pool "
                   f"{g.graph.pool_bytes / 2**20:.1f} MiB")
+
+
+def setup_graph_path():
+    """Phase "setup-graph": rough16's bootstrap setup (options off) with its
+    sweeps as device programs (SetupCycleGraph) and with host loops, in
+    turns (host, programs, programs, host), and its interpolation-1 setup
+    (TwoLevelUpdateGraph) with host loops and as programs: every level's
+    test vectors bit-equal, every kernel's launches within 0.1 %; setup
+    seconds, captures, their seconds and the largest pools held, each way.
+    Returns the launches of the programs' bootstrap setup."""
+    from ddalphaamg_tpu_torch import api, kernels
+
+    name = "setup-graph"
+    t0 = time.perf_counter()
+    solver = api.Solver(rough16_params(), device="cuda")
+    solver.read_conf()
+
+    def once(interp, loops):
+        solver.p.interpolation = interp
+        with host_loops() if loops else contextlib.nullcontext():
+            kernels.reset_counts()
+            seconds = solver.setup().setup_time
+            counts = kernels.counts()
+        mg = solver.mg
+        tvs = [lvl.test_vectors.clone() for lvl in mg._levels() if lvl.test_vectors is not None]
+        return seconds, tvs, counts, dict(mg.graph_stats)
+
+    out = None
+    for interp, label, order in ((2, "bootstrap", (True, False, False, True)),
+                                 (1, "interpolation 1", (True, False))):
+        runs = [(loops, once(interp, loops)) for loops in order]
+        (_, (_, tvh, host, _)), (_, (_, tvg, got, g)) = runs[0], runs[1]
+        off = {k: (got[k], host[k]) for k in host
+               if k != "G" and abs(got[k] - host[k]) > 1e-3 * host[k]}
+        equal = len(tvh) == len(tvg) and all(torch.equal(a, b) for a, b in zip(tvh, tvg))
+        if not equal or off or not got["G"] or host["G"]:
+            fail(f"{name}: {label}: the programs' setup differs from the host loops' "
+                 f"(test vectors bit-equal {equal}, launches {off}, replays {got['G']} / "
+                 f"{host['G']})")
+        phase(name, t0, f"{label}: test vectors of {len(tvg)} levels bit-equal, launches "
+              f"{as_text({k: n for k, n in host.items() if n and k != 'G'})} either way "
+              f"(replays {got['G']}); setup s in turns " + ", ".join(
+                  f"{'host loops' if loops else 'programs'} {r[0]:.3f}" for loops, r in runs)
+              + f"; programs: {g['captures']} captures ({g['capture_seconds']:.3f} s), "
+              f"{g['replays']} replays, pools held at most {g['peak_pool_bytes'] / 2**20:.1f} MiB")
+        out = got if out is None else out
+    solver.p.interpolation = 2
+    return out
 
 
 def point_sources(lattice):
@@ -1756,8 +1861,8 @@ def rough32_path(U, field_s):
     chunks = Counter()
     lane_chunk = hierarchy.lane_chunk
 
-    def recording(n, lane_bytes, device, mesh=None):
-        c = lane_chunk(n, lane_bytes, device, mesh)
+    def recording(n, lane_bytes, device, mesh=None, held=0):
+        c = lane_chunk(n, lane_bytes, device, mesh, held)
         chunks[(n, lane_bytes, c)] += 1
         return c
 
@@ -1777,15 +1882,21 @@ def rough32_path(U, field_s):
             plaq = solver.set_conf(U, links_have_bc=True)
             phase(name, t0, f"field {ROUGH32} made in {field_s:.2f} s, plaquette {plaq:.13f}")
             mem("after set_conf")
-            status = solver.setup()
+            with setup_profile() as split:
+                status = solver.setup()
     finally:
         hierarchy.lane_chunk = lane_chunk
-    phase(name, t0, f"setup {status.setup_time:.3f} s")
+    phase(name, t0, f"setup {status.setup_time:.3f} s (its phases profiled, a "
+          "synchronization at the end of each)")
+    phase(name, t0, "setup phases: " + split_text(split, status.setup_time))
     graph_stats(name, t0, solver, " of the setup", "22 captures, 3.2-3.7 s")
+    phase(name, t0, f"the setup's programs held pools of at most "
+          f"{solver.mg.graph_stats['peak_pool_bytes'] / GiB:.2f} GiB at once")
     mem("after the setup")
     for (n, lane, c), calls in sorted(chunks.items(), key=lambda kv: -kv[0][1]):
         phase(name, t0, f"setup chunk: {n} lanes of {lane / GiB:.3f} GiB -> {c} a chunk "
               f"({calls} calls)")
+    tvs = solver.mg.fine.test_vectors.clone()     # for held_sweep, after the solves
     solver.slim_for_solve()
     mem("after slim_for_solve")
     torch.cuda.reset_peak_memory_stats()
@@ -1831,7 +1942,47 @@ def rough32_path(U, field_s):
                            info2.solve_time, lattices)
     finally:
         cuda_coarse.coarse_apply = apply
+    held_sweep(name, t0, solver.mg, tvs)
     return counts, profile, shapes
+
+
+def held_sweep(name, t0, mg, tvs):
+    """One depth-0 bootstrap sweep (Multigrid._setup_cycles_batch) of the
+    test vectors tvs on a set-up hierarchy (its cycles read the bf16 views
+    slim_for_solve keeps), as replays of SetupCycleGraph and with host
+    loops at the same lane chunk: x and the collected next-level solutions
+    bit-equal, launches within 0.1 % (counted after the path's own, which
+    it leaves out), each way's seconds.  The hierarchy is left as it
+    was."""
+    from ddalphaamg_tpu_torch import kernels
+
+    runs = []
+    chunk = None
+    for loops in (False, True):
+        with host_loops() if loops else contextlib.nullcontext(), mg._setup_scope():
+            if chunk is not None:
+                mg._chunks[0] = chunk
+            chunk = mg._setup_chunk(mg.fine, tvs.shape[0])
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, coll = mg._setup_cycles_batch(mg.fine, tvs)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1, x, coll, kernels.counts(),
+                         dict(mg.graph_stats)))
+    (sg, xg, cg, got, g), (sh, xh, ch, host, _) = runs
+    off = {k: (got[k], host[k]) for k in host
+           if k != "G" and abs(got[k] - host[k]) > 1e-3 * host[k]}
+    equal = torch.equal(xg, xh) and cg.keys() == ch.keys() and all(
+        torch.equal(cg[d], ch[d]) for d in cg)
+    if not equal or off or not got["G"]:
+        fail(f"{name}: a depth-0 sweep as programs differs from the host loops (bit-equal "
+             f"{equal}, launches {off}, replays {got['G']})")
+    phase(name, t0, f"a depth-0 sweep of {tvs.shape[0]} test vectors in chunks of {chunk}: "
+          f"x and the collected depth {sorted(cg)} bit-equal, launches "
+          f"{as_text({k: n for k, n in host.items() if n and k != 'G'})} either way "
+          f"(replays {got['G']}); programs {sg:.3f} s (with the capture), host loops "
+          f"{sh:.3f} s")
 
 
 def method_params(method, interpolation=2, **options):
@@ -2333,6 +2484,7 @@ def main():
     paths["solve"] = dict(counts)
     paths["multi"] = multi_path("multi", solver)
     inner_graph_path("inner-graph", solver, (1, MULTI_RHS))
+    paths["setup-graph"] = setup_graph_path()
     singles = methods_path(paths, solver, k6_ms)
     library_path(paths, solver)
     del solver
@@ -2367,9 +2519,12 @@ def main():
     paths["defaults"] = defaults_path(iterations, warm, direct_warm_s)
     torch.cuda.empty_cache()
     paths["rough32"], profile32, shapes = rough32_path(U32, field_s)
+    gc.collect()        # the hierarchy, with its graphs' pools, before the shape checks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     unlaunched = [shape_label(t) for t in ROUGH32_SHAPES if t not in shapes]
+    phase("rough32", t0, f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated before the shape checks")
     phase("rough32", t0, f"{len(shapes)} kernel shapes launched; phase 3's rows rough32 did not "
           "launch: " + ("; ".join(unlaunched) or "none"))
     params32 = rough32_params()

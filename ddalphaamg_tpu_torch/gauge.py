@@ -39,6 +39,58 @@ def _mm(*ms):
     return out
 
 
+def _mm_parts(*ms):
+    """The product of [..., 3, 3] matrices with each complex product formed
+    from real ones, re = ar br - ai bi and im = ar bi + ai br, each summed
+    over the inner index in order: the arithmetic of the JAX package's
+    complex einsum on the CPU, so that plaquette_field gives its bits."""
+    def parts(x, y):
+        return sum(x[..., :, k, None] * y[..., None, k, :] for k in range(3))
+
+    out = ms[0]
+    for m in ms[1:]:
+        ar, ai, br, bi = out.real, out.imag, m.real, m.imag
+        out = torch.complex(parts(ar, br) - parts(ai, bi), parts(ar, bi) + parts(ai, br))
+    return out
+
+
+def plaquette_field(U: torch.Tensor, mu: int, nu: int) -> torch.Tensor:
+    """P_{mu nu}(x) = U_mu(x) U_nu(x+mu) U_mu(x+nu)^H U_nu(x)^H, [T,Z,Y,X,3,3]
+    (the JAX package's gauge.plaquette_field, bit for bit on the CPU)."""
+    Umu, Unu = U[mu], U[nu]
+    return _mm_parts(Umu, _roll(Unu, -1, mu), _dag(_roll(Umu, -1, nu)), _dag(Unu))
+
+
+def unit_gauge(lattice, device, dtype=torch.complex128) -> torch.Tensor:
+    """The unit (free-field) configuration [4, *lattice, 3, 3] on `device`
+    (the JAX package's gauge.unit_gauge; reference conf/random/unit_conf.c)."""
+    eye = torch.eye(3, dtype=dtype, device=device)
+    return eye.expand(4, *lattice, 3, 3).contiguous()
+
+
+def random_gauge(lattice, generator: torch.Generator, device,
+                 dtype=torch.complex128) -> torch.Tensor:
+    """A Haar-random SU(3) configuration [4, *lattice, 3, 3] on `device`
+    (the JAX package's gauge.random_gauge; reference
+    conf/random/random_conf.c), drawn from `generator` (a generator of that
+    device): the unitary factor of the QR of complex Gaussian matrices with
+    R's diagonal made real and positive (the Haar phase fix, U(3)), then
+    divided by a cube root of its determinant (SU(3)).  The QR is
+    tools._qr_q (Gram-Schmidt, each projection twice), which gives that
+    factor directly and is far faster on a card than torch.linalg.qr for
+    millions of 3 x 3 matrices.  The same distribution as the JAX package,
+    not its bits (jax.random is another generator)."""
+    from .tools import _qr_q
+
+    shape = (4, *lattice, 3, 3)
+    rdtype = torch.empty((), dtype=dtype).real.dtype
+    re = torch.randn(shape, generator=generator, dtype=rdtype, device=device)
+    im = torch.randn(shape, generator=generator, dtype=rdtype, device=device)
+    q = _qr_q(torch.complex(re, im))
+    det = torch.linalg.det(q)                                 # |det| = 1
+    return q * (det ** (1.0 / 3.0)).conj()[..., None, None]
+
+
 def average_plaquette(U: torch.Tensor) -> float:
     """Average plaquette normalized to [0, 3] (reference calc_plaq)."""
     U = U.to(torch.complex128)

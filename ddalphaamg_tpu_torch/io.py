@@ -1,5 +1,4 @@
-"""Gauge-configuration IO, binary format 0, and vector / test-vector IO
-(numpy only).
+"""Gauge-configuration IO, binary format 0, and vector / test-vector IO.
 
 The DDalphaAMG binary gauge format (reference src/io.c:459-560, layout in
 doc/user_doc.tex:112-146):
@@ -30,6 +29,12 @@ file a vector, `path.00`, `path.01`, ..., or an HDF5 file (`.h5` /
 Anti-periodic boundary conditions in time are applied here by negating the
 T-direction links on the last global T-slice (reference src/io.c:538-544),
 so every downstream stencil is purely periodic.
+
+The binary format is read and written by the native library (native.py,
+csrc/ddio.cpp, built with g++ at first use) where it loads, as the JAX
+package's io.py:40-46 reads, else by numpy; both give the same bits, and
+last_reader names the reader of the last read_gauge_field ("native",
+"numpy" or "hdf5").
 """
 
 from __future__ import annotations
@@ -38,7 +43,10 @@ import math
 
 import numpy as np
 
+from . import native
+
 T, Z, Y, X = 0, 1, 2, 3
+last_reader = None      # the reader of the last read_gauge_field (module note)
 
 
 def _is_hdf5_path(path) -> bool:
@@ -99,9 +107,22 @@ def _write_binary(path, lattice, flat, plaquette: float):
 
 def read_gauge_field(path: str, anti_periodic: bool = True):
     """Returns (U complex128 [4, T, Z, Y, X, 3, 3], header plaquette);
-    `.h5` / `.hdf5` paths are read as HDF5."""
+    `.h5` / `.hdf5` paths are read as HDF5.  The native reader goes first;
+    numpy reads where it is unavailable or refuses the file (and then
+    raises its own error for a malformed one); last_reader names the
+    reader."""
+    global last_reader
     if _is_hdf5_path(path):
+        last_reader = "hdf5"
         return read_gauge_field_hdf5(path, anti_periodic=anti_periodic)
+    try:
+        out = native.read_gauge_field(str(path), anti_periodic=anti_periodic)
+    except OSError:
+        out = None
+    if out is not None:
+        last_reader = "native"
+        return out
+    last_reader = "numpy"
     with open(path, "rb") as f:
         raw = f.read()
     (lt, lz, ly, lx), endian = _extents(raw, path)
@@ -120,6 +141,8 @@ def write_gauge_field(path: str, U, plaquette: float, anti_periodic: bool = True
     undone first); `.h5` / `.hdf5` paths are written as HDF5."""
     if _is_hdf5_path(path):
         return write_gauge_field_hdf5(path, U, plaquette, anti_periodic=anti_periodic)
+    if native.write_gauge_field(str(path), U, plaquette, anti_periodic=anti_periodic):
+        return
     U = _apply_bc(U, anti_periodic)
     _write_binary(path, U.shape[1:5], _site_major(U), plaquette)
 

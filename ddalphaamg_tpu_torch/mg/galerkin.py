@@ -71,10 +71,11 @@ def _face_masks(lattice, coarsening, offsets=(0, 0, 0, 0)) -> tuple[np.ndarray, 
 
 
 def build_coarse_blocks(stencil, agg: Aggregation, P: torch.Tensor,
-                        chunk=None) -> torch.Tensor:
+                        chunk=None, out=None) -> torch.Tensor:
     """D_c = P^H D P for the operator of a fine or coarse stencil (in the
-    stencil's precision), packed [9, d (j), d (i), Vc] as K4 reads it; the
-    2N basis fields run `chunk` at a time (None: all at once)."""
+    stencil's precision), packed [9, d (j), d (i), Vc] as K4 reads it, into
+    out if given (a tensor of that shape and dtype); the 2N basis fields
+    run `chunk` at a time (None: all at once)."""
     if min(agg.coarsening) < 2:
         raise ValueError("the Galerkin build separates forward and backward "
                          "face couplings by site; aggregates must be at least "
@@ -87,7 +88,11 @@ def build_coarse_blocks(stencil, agg: Aggregation, P: torch.Tensor,
     rdtype = stencil.even.dtype
     up = torch.as_tensor(up, dtype=rdtype, device=P.device)
     lo = torch.as_tensor(lo, dtype=rdtype, device=P.device)
-    Pk = torch.empty((9, n, n, P.shape[0]), dtype=stencil.dtype, device=P.device)
+    shape = (9, n, n, P.shape[0])
+    if out is not None and (out.shape != shape or out.dtype != stencil.dtype):
+        raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, the blocks {shape} "
+                         f"{stencil.dtype}")
+    Pk = torch.empty(shape, dtype=stencil.dtype, device=P.device) if out is None else out
     fine = isinstance(stencil, WilsonStencilSoA)
     if not fine and not isinstance(stencil, CoarseStencilSoA):
         raise TypeError(type(stencil))

@@ -75,21 +75,39 @@ package's _inner_restart_impl), and every preconditioner call
 (Multigrid.__call__, methods 1 and 3) one replay of a graph of one cycle:
 each GCR in them, the fine one, the K-cycle's and the coarsest, is one
 loop with one body and a device-side iteration index, nested, and no
-replay reads the device.  The setup's cycles stay host-driven, with each
-coarsest GCR one replay of a graph of its own (CoarsestGraph).  A level
-keeps one coarsest graph per (batch, field dtype, block dtype) and checks
-that its stencil is the one captured; the Multigrid keeps one program of
-each kind, for the last (batch, GCR length, dtype, fine operator), and
+replay reads the device.  The setup's sweeps are programs too (the JAX
+package's _setup_cycles_batch and vmapped _inv_iter_2lvl): every chunk of
+a level's bootstrap cycles one replay of SetupCycleGraph, every chunk of
+an interpolation-1 update one of TwoLevelUpdateGraph.  Inside a setup
+(_setup_scope) a level's lane chunk is fixed at the setup's start, the last
+chunk padded with copies of a real lane (padded_chunk; the host loops take
+the same chunks), and re_setup writes the new P, coarse blocks, their
+inverse and bf16 view into the storage the programs read, so one capture
+per (program, depth) serves the whole setup; the Gram-Schmidt, the
+test-vector updates and the Galerkin builds stay host-launched between the
+replays.  A coarsest GCR outside any program on a card is one replay of a
+graph of its own (CoarsestGraph); a level keeps one per (batch, field
+dtype, block dtype) and checks that its stencil is the one captured.  The
+Multigrid keeps one program of each kind (of each kind and depth for the
+setup's), for the last (batch, GCR length, dtype, fine operator), and
 checks by identity every stencil, interpolation, inverse and smoother it
-captured.  re_setup, shift_update, slim_for_solve, the end of a setup,
-Solver.set_conf and Solver.setup drop the graphs, and a setup keeps one at
-a time (its lane chunks differ in batch).  A capture or replay that fails
-raises.  The host loops (HostControl, device_gcr) stay for tensors on the
-CPU and for any mesh (its collectives cannot be captured).
+captured.  re_setup outside a setup, shift_update, slim_for_solve, the
+start and end of a setup, Solver.set_conf and Solver.setup drop the
+graphs.  A capture or replay that fails raises.  The host loops
+(HostControl) stay for tensors on the CPU and for any mesh (its
+collectives cannot be captured).
+
+Profiling: with profiling.PROF on, the setup's phases are regions by the
+JAX package's names and depths (_prof: the coarsest dense inverse, the
+initial test-vector smoothing, the block inverses, and per bootstrap
+iteration the Gram-Schmidt, the test-vector cycles and the P / Galerkin
+rebuild), each ended by a synchronization of the card; with it off they
+run as they are.  No region is inside a captured body.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -107,12 +125,13 @@ from ..operators.stencil import (CoarseStencilSoA, WilsonStencilSoA, dense_inver
 from ..operators.wilson import WilsonOperator
 from ..parallel import comm
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
+from ..profiling import PROF
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
 from ..solvers.cuda_graph import CudaGraph
-from ..solvers.device_gmres import COUNTER_DTYPE, HostControl, device_gcr, gcr_program
+from ..solvers.device_gmres import COUNTER_DTYPE, HostControl, gcr_program
 from .coarsest import CoarsestGraph, coarsest_gcr
-from .programs import CycleGraph, InnerRestartGraph
+from .programs import CycleGraph, InnerRestartGraph, SetupCycleGraph, TwoLevelUpdateGraph
 from .galerkin import build_coarse_blocks, gather_blocks
 from .interpolation import Aggregation, block_qr, build_interpolation, interpolate, restrict
 
@@ -214,6 +233,18 @@ def _normalize(v, s):
     return v / n.reshape(-1, *([1] * (v.dim() - 1)))
 
 
+def _prof(name: str, depth: int, fn, device):
+    """fn() as the profiling region `name` at `depth` (the JAX package's
+    setup phases, its hierarchy.py:166-178; the reference profiles its setup
+    too, prof_print src/solver_analysis.c:65), the card synchronized at its
+    end with PROF.sync; fn() itself while PROF is off.  Never inside a
+    captured body: the synchronization is a host wait."""
+    if not PROF.enabled:
+        return fn()
+    with PROF.region(name, depth, device=device):
+        return fn()
+
+
 def _slab_geom(geom: Geometry, mesh) -> Geometry:
     """The geometry of this rank's slab of a level (geom itself unsharded)."""
     if mesh is None:
@@ -222,17 +253,19 @@ def _slab_geom(geom: Geometry, mesh) -> Geometry:
                     block=tuple(geom.block), dof=geom.dof)
 
 
-def lane_chunk(n: int, lane_bytes: int, device, mesh=None) -> int:
+def lane_chunk(n: int, lane_bytes: int, device, mesh=None, held: int = 0) -> int:
     """Lanes of one batch: all n, except where SETUP_MEMORY_SHARE of the
-    card's free memory (the caching allocator's idle blocks counted free)
-    cannot hold n lanes of lane_bytes each.  Under a mesh every rank takes
-    the smallest rank's chunk, so that all ranks make the same collective
-    calls."""
+    card's free memory (the caching allocator's idle blocks counted free,
+    but for the `held` bytes of graph pools, whose idle blocks only their
+    graphs reuse) cannot hold n lanes of lane_bytes each.  Under a mesh
+    every rank takes the smallest rank's chunk, so that all ranks make the
+    same collective calls."""
     dev = torch.device(device)
     chunk = n
     if dev.type == "cuda":
         free, _ = torch.cuda.mem_get_info(dev)
-        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        free += max(0, torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+                    - held)
         chunk = max(1, min(n, int(SETUP_MEMORY_SHARE * free) // max(lane_bytes, 1)))
     if mesh is not None:
         chunk = -int(comm.all_reduce_max(mesh, -chunk))
@@ -243,6 +276,17 @@ def lane_chunks(n: int, lane_bytes: int, device, mesh=None):
     """[(start, stop)] of the chunks lane_chunk cuts n lanes into."""
     chunk = lane_chunk(n, lane_bytes, device, mesh)
     return [(c0, min(n, c0 + chunk)) for c0 in range(0, n, chunk)]
+
+
+def padded_chunk(v, c0: int, chunk: int):
+    """Lanes c0 .. c0 + chunk of v, the lanes past its end copies of its
+    last lane (a copy iterates as its original, so no loop runs longer and
+    no lane's bits depend on it; a zero lane would normalize to NaN)."""
+    n = v.shape[0]
+    if c0 + chunk <= n:
+        return v[c0:c0 + chunk]
+    idx = torch.arange(c0, c0 + chunk, device=v.device).clamp(max=n - 1)
+    return v.index_select(0, idx)
 
 
 class Multigrid:
@@ -262,11 +306,15 @@ class Multigrid:
         self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0,
                       "coarsest_inverse_applies": 0.0}
         self.build_times: dict[str, float] = {}     # seconds of each inverse build
-        self.graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
+        self.graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
+                            "peak_pool_bytes": 0}
         # the device programs (mg/programs.py) by (kind, batch, GCR length, dtype)
         self.programs: dict = {}
         self._defer_dense = False
+        # a setup's fixed lane chunks by depth (None outside a setup: _setup_scope)
+        self._chunks: Optional[dict] = None
         self.slim = False                           # slim_for_solve ran
+        self.fine = None
         self.fine = self._build(op)
 
     # ------------------------------------------------------------------
@@ -348,24 +396,36 @@ class Multigrid:
         tv = s.slab(tv)
         sm = level.smoother
         lane = LANE_FIELDS * math.prod(s.field_shape) * s.dtype.itemsize
-        out = []
-        for c0, c1 in lane_chunks(shape[0], lane, s.device, s.mesh):
-            v = tv[c0:c1].to(device=s.device, dtype=s.dtype)
-            for ncy in (1, 2, 3):
-                v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
-            out.append(v)
-        return _normalize(torch.cat(out), s)
 
-    def _resetup(self, level: MGLevel, next_geom: Geometry, next_mesh):
+        def smooth():
+            out = []
+            for c0, c1 in lane_chunks(shape[0], lane, s.device, s.mesh):
+                v = tv[c0:c1].to(device=s.device, dtype=s.dtype)
+                for ncy in (1, 2, 3):
+                    v = sap_smooth(s, sm.colors, v, ncy, sm.block_iter, sm.odd_even)
+                out.append(v)
+            return _normalize(torch.cat(out), s)
+
+        return _prof("setup: initial tv smoothing", level.depth, smooth, s.device)
+
+    def _resetup(self, level: MGLevel, next_geom: Geometry, next_mesh, into=None):
         """One coarsening rebuild: P from the level's test vectors, then the
         Galerkin coarse stencil (on next_mesh, or gathered whole onto every
-        rank when the next level is replicated)."""
-        P = build_interpolation(level.agg, level.test_vectors)
+        rank when the next level is replicated).  into: the (P, stencil,
+        bf16 view or None) of the last rebuild on one rank, whose storage the
+        new ones are written into and which are returned (re_setup in a
+        setup)."""
         s = level.stencil
         mesh = s.mesh
+        P = build_interpolation(level.agg, level.test_vectors,
+                                out=None if into is None else into[0])
         column = GALERKIN_FIELDS * math.prod(s.field_shape) * s.dtype.itemsize
         Pk = build_coarse_blocks(s, level.agg, P, chunk=lane_chunk(
-            2 * level.agg.num_vectors, column, s.device, mesh))
+            2 * level.agg.num_vectors, column, s.device, mesh, held=self.graph_pool_bytes()),
+            out=None if into is None else into[1].Pk)
+        if into is not None:
+            into[1].refresh(into[2])
+            return into[:2]
         if mesh is not None and next_mesh is None:
             Pk = gather_blocks(mesh, Pk, level.agg.coarse_lattice)
         return P, CoarseStencilSoA.from_blocks(Pk.to(self.cfg.dtype),
@@ -378,14 +438,26 @@ class Multigrid:
         (the interpolation-1 setup's rebuild, src/setup_generic.c:373-390).
         The stale P, stencil, bf16 view and inverses are dropped before
         their successors are built (the views and inverses are rebuilt at
-        first use)."""
+        first use).  Inside a setup whose sweeps run as device programs
+        (_setup_scope, uses_graphs) P, the stencil's blocks and its bf16
+        view are rewritten in place instead, so that the programs, which
+        read them, serve the whole setup; only the inverses are dropped."""
         self.require_setup("re_setup")
-        self.drop_graphs()
+        in_place = self._chunks is not None and self.uses_graphs(level.test_vectors)
+        if not in_place:
+            self.drop_graphs()
         lvl = level
         while lvl is not None and not lvl.is_coarsest:
             nxt = lvl.next
             mesh = nxt.stencil.mesh
-            lvl.P = nxt.stencil = nxt.cycle_stencil = nxt.dense_inv = nxt.block_inv = None
+            nxt.dense_inv = nxt.block_inv = None
+            if in_place:
+                self._resetup(lvl, nxt.geom, mesh, into=(lvl.P, nxt.stencil, nxt.cycle_stencil))
+                if depth_only:
+                    break
+                lvl = nxt
+                continue
+            lvl.P = nxt.stencil = nxt.cycle_stencil = None
             if nxt.smoother is not None:
                 nxt.smoother.replace_stencil(None)
             lvl.P, nxt.stencil = self._resetup(lvl, nxt.geom, mesh)
@@ -522,12 +594,15 @@ class Multigrid:
         return g
 
     def _captured(self, g):
-        self.graph_stats["captures"] += 1
-        self.graph_stats["capture_seconds"] += g.graph.capture_seconds
+        st = self.graph_stats
+        st["captures"] += 1
+        st["capture_seconds"] += g.graph.capture_seconds
+        st["peak_pool_bytes"] = max(st["peak_pool_bytes"], self.graph_pool_bytes())
 
     def _program(self, cls, B: int, dtype, m: int = 0, op=None):
         """The device program cls (mg/programs.py) for B lanes, captured at
-        first use; one of a kind is kept (another batch, GCR length, dtype or
+        first use; one of a kind is kept (of a kind and depth m for the
+        setup's programs, cls.per_depth; another batch, GCR length, dtype or
         fine operator op replaces it), and every program is dropped first
         where a level's stencil, interpolation, inverse or smoother it read
         was replaced (holds, by identity)."""
@@ -539,7 +614,8 @@ class Multigrid:
         g = self.programs.get(key)
         if g is None or g.op is not op:
             # one program of a kind: its pool holds the bases (GBs at 32^4)
-            for k in [k for k in self.programs if k[0] == key[0]]:
+            for k in [k for k in self.programs
+                      if k[0] == key[0] and (not cls.per_depth or k[2] == m)]:
                 self.programs.pop(k).close()
             g = self.programs[key] = cls(self, B, dtype, m=m, op=op, holds=holds,
                                          capture=GRAPH_CAPTURE)
@@ -613,22 +689,27 @@ class Multigrid:
         if self._defer_dense:
             return
         bf16 = cfg.coarse_block_bf16
+
+        def build(region, name, lvl, fn):
+            """fn() as the profiler's region and timed into build_times."""
+            return _prof(region, lvl.depth, lambda: self._timed(f"{name} depth {lvl.depth}", fn),
+                         lvl.stencil.device)
+
         for lvl in self._levels()[1:]:
             if cfg.coarsest_direct and lvl.is_coarsest and lvl.dense_inv is None:
                 s = lvl.stencil
                 if self._odd_even(lvl):
                     idx = schur_even_indices(s)
-                    lvl.dense_inv = (self._timed(
-                        f"coarsest Schur inverse depth {lvl.depth}",
-                        lambda: dense_schur_inverse(s, idx, bf16=bf16)), idx)
+                    lvl.dense_inv = (build("setup: coarsest dense inverse",
+                                           "coarsest Schur inverse", lvl,
+                                           lambda: dense_schur_inverse(s, idx, bf16=bf16)), idx)
                 else:
-                    lvl.dense_inv = self._timed(
-                        f"coarsest dense inverse depth {lvl.depth}",
-                        lambda: dense_inverse(s, bf16=bf16))
+                    lvl.dense_inv = build("setup: coarsest dense inverse",
+                                          "coarsest dense inverse", lvl,
+                                          lambda: dense_inverse(s, bf16=bf16))
             if cfg.smoother_direct and lvl.smoother is not None and lvl.block_inv is None:
-                lvl.block_inv = self._timed(
-                    f"block inverses depth {lvl.depth}",
-                    lambda: build_block_inverse(lvl.stencil, bf16=bf16))
+                lvl.block_inv = build("setup: block inverses", "block inverses", lvl,
+                                      lambda: build_block_inverse(lvl.stencil, bf16=bf16))
 
     def _restrict(self, level: MGLevel, r):
         """P^H r, gathered whole onto every rank for a replicated next level."""
@@ -766,6 +847,26 @@ class Multigrid:
     # adaptive (bootstrap) setup
     # ------------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _setup_scope(self):
+        """A setup's sweeps: the inverses deferred (the setup cycles run the
+        GCR coarsest solve and the MinRes smoother; the inverses are built
+        for the final hierarchy only), every level's lane chunk fixed at the
+        start, before any program holds memory (_setup_chunk), re_setup in
+        place where the sweeps run as device programs, and every graph
+        dropped at the start and at the end."""
+        self.drop_graphs()
+        self._defer_dense = True
+        self._chunks = {}
+        for lvl in self._levels()[:-1]:
+            self._setup_chunk(lvl, lvl.cfg.num_test_vectors)
+        try:
+            yield
+        finally:
+            self._defer_dense = False
+            self._chunks = None
+            self.drop_graphs()
+
     def bootstrap_setup(self, setup_iter: Optional[int] = None):
         """inv_iter_inv_fcycle_PRECISION: refine test vectors with the
         current hierarchy, rebuilding P / D_c each iteration."""
@@ -773,14 +874,8 @@ class Multigrid:
         it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
         if self.cfg.num_levels < 2 or it <= 0:
             return
-        # setup cycles run the GCR coarsest solve and the MinRes smoother;
-        # the inverses are built for the final hierarchy only
-        self._defer_dense = True
-        try:
+        with self._setup_scope():
             self._inv_iter_fcycle(self.fine, it)
-        finally:
-            self._defer_dense = False
-            self.drop_graphs()
 
     def twolevel_extension_setup(self, setup_iter: Optional[int] = None):
         """Interpolation 1 (inv_iter_2lvl_extension_setup_PRECISION,
@@ -794,12 +889,8 @@ class Multigrid:
         it = setup_iter if setup_iter is not None else self.cfg.levels[0].setup_iter
         if self.cfg.num_levels < 2 or it <= 0:
             return
-        self._defer_dense = True
-        try:
+        with self._setup_scope():
             self._inv_iter_2lvl(self.fine, it)
-        finally:
-            self._defer_dense = False
-            self.drop_graphs()
 
     def _inv_iter_2lvl(self, level: MGLevel, setup_iter: int):
         for _ in range(setup_iter):
@@ -811,30 +902,45 @@ class Multigrid:
     def _twolevel_update(self, level: MGLevel, tvs):
         """The interpolation-1 update of all test vectors of a level as one
         batch (the JAX package vmaps _twolevel_update_one; the updates of
-        one iteration are independent), in chunks as _setup_cycles_batch."""
+        one iteration are independent), in chunks as _setup_cycles_batch:
+        each chunk one replay of TwoLevelUpdateGraph on a card with one
+        rank, else driven from the host."""
+        n = tvs.shape[0]
+        chunk = self._setup_chunk(level, n)
+        out = []
+        for c0 in range(0, n, chunk):
+            lanes = padded_chunk(tvs, c0, chunk)
+            if self.uses_graphs(lanes):
+                v = self._program(TwoLevelUpdateGraph, chunk, lanes.dtype, m=level.depth)(lanes)
+            else:
+                v = self._twolevel_lanes(level, lanes)
+            out.append(v[:n - c0])
+        return torch.cat(out)
+
+    def _twolevel_lanes(self, level: MGLevel, tv, ctl=None):
+        """The interpolation-1 update of the lanes tv [B, dof, V] of a
+        level: the coarse solve of P^H tv on the next level (the odd-even
+        Schur GCR where it is the coarsest, else the reference's gmres with
+        prec = _NOTHING), interpolation, post-smoothing towards tv and
+        normalization; its GCR under the control ctl of the program it is
+        part of (TwoLevelUpdateGraph), or driven from the host."""
         cfg = self.cfg
         nxt = level.next
         s = self._cycle_view(level)
-        out = []
-        chunk = self._setup_chunk(level, tvs.shape[0])
-        for c0 in range(0, tvs.shape[0], chunk):
-            tv = tvs[c0:c0 + chunk]
-            b_c = self._restrict(level, tv)
-            if nxt.is_coarsest:
-                x_c, _ = self._coarsest_solve(nxt, b_c)
-            else:           # the reference's gmres with prec = _NOTHING
-                ns = self._cycle_view(nxt)
-                x_c, _, _, _ = device_gcr(ns.full_op, b_c, m=cfg.coarse_iter,
-                                          tol=cfg.coarse_tol,
-                                          n_restarts=cfg.coarse_restart,
-                                          allsum=ns.allsum)
-            buf = sap_smooth_from(s, level.smoother.colors, tv, self._interpolate(level, x_c),
-                                  cycles=level.cfg.post_smooth_iter,
-                                  block_iter=level.cfg.block_iter,
-                                  odd_even=(level.depth == 0 and cfg.odd_even),
-                                  block_inv=level.block_inv, blocks=level.smoother.blocks)
-            out.append(_normalize(buf, level.stencil))
-        return torch.cat(out)
+        b_c = self._restrict(level, tv)
+        if nxt.is_coarsest:
+            x_c, _ = self._coarsest_solve(nxt, b_c, ctl)
+        else:
+            ns = self._cycle_view(nxt)
+            x_c, _, _, _ = gcr_program(ctl or HOST, ns.full_op, b_c, cfg.coarse_iter,
+                                       cfg.coarse_tol, n_restarts=cfg.coarse_restart,
+                                       allsum=ns.allsum)
+        buf = sap_smooth_from(s, level.smoother.colors, tv, self._interpolate(level, x_c),
+                              cycles=level.cfg.post_smooth_iter,
+                              block_iter=level.cfg.block_iter,
+                              odd_even=(level.depth == 0 and cfg.odd_even),
+                              block_inv=level.block_inv, blocks=level.smoother.blocks)
+        return _normalize(buf, level.stencil)
 
     def _setup_cycles_batch(self, level: MGLevel, tvs):
         """The bootstrap cycles of all test vectors of a level as one batch
@@ -843,16 +949,25 @@ class Multigrid:
         reference's i-loop over test vectors has no dependency between
         vectors inside one bootstrap iteration.  The lanes run in chunks
         that fit the device's free memory (one chunk unless the level is
-        large; _setup_chunk).  Returns (xs, {depth: collected [N, ...]})."""
-        ktol = self._kcycle_tol(level.depth, self.cfg.coarse_tol)
-        chunk = self._setup_chunk(level, tvs.shape[0])
+        large; _setup_chunk), the last one padded (padded_chunk), each
+        chunk one replay of SetupCycleGraph on a card with one rank, else
+        driven from the host.  Returns (xs, {depth: collected [N, ...]})."""
+        n = tvs.shape[0]
+        chunk = self._setup_chunk(level, n)
         xs, coll = [], {}
-        for c0 in range(0, tvs.shape[0], chunk):
-            collect = {}
-            x, _ = self._cycle(level.depth, tvs[c0:c0 + chunk], ktol, collect=collect)
-            xs.append(x)
+        for c0 in range(0, n, chunk):
+            lanes = padded_chunk(tvs, c0, chunk)
+            if self.uses_graphs(lanes):
+                x, collect = self._program(SetupCycleGraph, chunk, lanes.dtype,
+                                           m=level.depth)(lanes)
+            else:
+                collect = {}
+                x, _ = self._cycle(level.depth, lanes,
+                                   self._kcycle_tol(level.depth, self.cfg.coarse_tol),
+                                   collect=collect)
+            xs.append(x[:n - c0])
             for dep, xc in collect.items():
-                coll.setdefault(dep, []).append(xc)
+                coll.setdefault(dep, []).append(xc[:n - c0])
         return torch.cat(xs), {d: torch.cat(v) for d, v in coll.items()}
 
     def _lane_bytes(self, level: MGLevel) -> int:
@@ -878,15 +993,31 @@ class Multigrid:
         return B * (self._lane_bytes(self.fine) + 2 * m * field)
 
     def _setup_chunk(self, level: MGLevel, n: int) -> int:
-        """Lanes of one setup batch of n at `level` (lane_chunk)."""
-        return lane_chunk(n, self._lane_bytes(level), level.stencil.device, self.cfg.mesh)
+        """Lanes of one setup batch of n at `level`, fixed for a setup at its
+        start (_setup_scope): the programs are captured at that batch, and
+        the host loops take it too, so both run every kernel at the same
+        batch.  At most lane_chunk's, in the fewest chunks, or in one chunk
+        more where that pads fewer lanes (a padded lane costs a real one's
+        work: 28 lanes in 7 chunks of 4, not 6 of 5)."""
+        chunks = {} if self._chunks is None else self._chunks
+        if level.depth not in chunks:
+            most = lane_chunk(n, self._lane_bytes(level), level.stencil.device, self.cfg.mesh)
+            fewest = -(-n // most)
+            k = min((fewest, min(n, fewest + 1)), key=lambda k: k * -(-n // k))
+            chunks[level.depth] = -(-n // k)
+        return chunks[level.depth]
 
     def _inv_iter_fcycle(self, level: MGLevel, setup_iter: int):
+        dev = level.stencil.device
         for j in range(setup_iter):
             tvs = level.test_vectors
             n = tvs.shape[0]
-            q = block_qr(tvs.reshape(n, -1).transpose(0, 1), level.stencil.allsum)
-            xs, collect = self._setup_cycles_batch(level, q.transpose(0, 1).reshape(tvs.shape))
+            q = _prof("setup: gram schmidt", level.depth,
+                      lambda: block_qr(tvs.reshape(n, -1).transpose(0, 1),
+                                       level.stencil.allsum).transpose(0, 1).reshape(tvs.shape),
+                      dev)
+            xs, collect = _prof("setup: tv cycles (F-cycle)", level.depth,
+                                lambda: self._setup_cycles_batch(level, q), dev)
             level.test_vectors = _normalize(xs, level.stencil)
             # test_vector_PRECISION_update: coarse solutions of the cycles
             lvl = level.next
@@ -896,7 +1027,7 @@ class Multigrid:
                     lvl.test_vectors[:k] = _normalize(collect[lvl.depth][:k],
                                                       lvl.stencil)
                 lvl = lvl.next
-            self.re_setup(level)
+            _prof("setup: P/Galerkin rebuild", level.depth, lambda: self.re_setup(level), dev)
             if level.depth == 0 and not level.next.is_coarsest:
                 sub = max(1, round((j + 1) * level.next.cfg.setup_iter / setup_iter))
                 self._inv_iter_fcycle(level.next, sub)

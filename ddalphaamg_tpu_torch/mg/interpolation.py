@@ -92,10 +92,13 @@ def block_qr(a: torch.Tensor, allsum=None) -> torch.Tensor:
     return q
 
 
-def build_interpolation(agg: Aggregation, test_vectors: torch.Tensor) -> torch.Tensor:
-    """test_vectors [N, dof, V] -> P [Vc, 2, N, m]."""
+def build_interpolation(agg: Aggregation, test_vectors: torch.Tensor,
+                        out=None) -> torch.Tensor:
+    """test_vectors [N, dof, V] -> P [Vc, 2, N, m], written into out if
+    given."""
     cols = to_aggregates(agg, test_vectors).permute(1, 2, 3, 0)  # [Vc,2,m,N]
-    return block_qr(cols).transpose(-1, -2).contiguous()
+    q = block_qr(cols).transpose(-1, -2)
+    return q.contiguous() if out is None else out.copy_(q)
 
 
 def restrict(agg: Aggregation, P: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

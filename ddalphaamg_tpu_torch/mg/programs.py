@@ -23,6 +23,21 @@ interpolation, inverses and smoother; the Multigrid compares them by
 identity before every replay and drops its programs when one was
 replaced.  The pool holds the bases for the life of the graph: the fine
 ones 2 m B fields (Multigrid.program_bytes).
+
+The setup's sweeps (the JAX package's _setup_cycles_batch and the vmapped
+_inv_iter_2lvl, hierarchy.py:927-987) are two more programs, one of each a
+depth, captured at a setup's first sweep of that depth and replayed for
+every chunk of lanes of every later sweep: SetupCycleGraph is one chunk of
+a level's bootstrap cycles (Multigrid._cycle with its K-cycle and coarsest
+GCRs, giving x and the next levels' solutions it collects),
+TwoLevelUpdateGraph one chunk of the interpolation-1 update
+(Multigrid._twolevel_lanes: restriction, the coarsest GCR or the
+unpreconditioned coarse GCR, interpolation, SAP, normalization).  Between
+the sweeps re_setup writes the rebuilt interpolations and stencils into
+the storage the programs read (Multigrid.re_setup), so the holds stay the
+same objects for the whole setup; a level's chunk is fixed at the setup's
+start (Multigrid._setup_chunk), so the batch does too.  Their pools stay
+held through the setup, the Galerkin builds included (lane_chunk's `held`).
 """
 
 from __future__ import annotations
@@ -72,3 +87,56 @@ class CycleGraph(GraphProgram):
 
         super().__init__(program, inputs, s.device, need=mg.program_bytes(B, 0),
                          capture=capture)
+
+
+class SetupCycleGraph(GraphProgram):
+    """One chunk of B lanes of the bootstrap cycles at depth m
+    (Multigrid._cycle with collect, K-cycle tolerance as the setup's) as one
+    CUDA graph (module note); op is unused.  Calling it with tvs replays it
+    and returns (x, {depth: collected solutions})."""
+
+    per_depth = True
+
+    def __init__(self, mg, B: int, dtype, m: int = 0, op=None, holds=(), capture=CudaGraph):
+        level = mg._levels()[m]
+        s = level.stencil
+        self.holds, self.op = holds, op
+        ktol = mg._kcycle_tol(m, mg.cfg.coarse_tol)
+        inputs = {"tvs": torch.zeros((B, *s.field_shape), dtype=dtype, device=s.device)}
+
+        def program(ctl, tvs):
+            collect = {}
+            x, _ = mg._cycle(m, tvs, ktol, collect=collect, ctl=ctl)
+            return {"x": x, **{f"depth {d}": xc for d, xc in collect.items()}}
+
+        super().__init__(program, inputs, s.device, need=B * mg._lane_bytes(level),
+                         capture=capture)
+
+    def __call__(self, tvs):
+        out = super().__call__(tvs=tvs)
+        x = out.pop("x")
+        return x, {int(k.split()[1]): v for k, v in out.items()}
+
+
+class TwoLevelUpdateGraph(GraphProgram):
+    """One chunk of B lanes of the interpolation-1 update at depth m
+    (Multigrid._twolevel_lanes) as one CUDA graph (module note); op is
+    unused.  Calling it with tvs replays it and returns the updated,
+    normalized lanes."""
+
+    per_depth = True
+
+    def __init__(self, mg, B: int, dtype, m: int = 0, op=None, holds=(), capture=CudaGraph):
+        level = mg._levels()[m]
+        s = level.stencil
+        self.holds, self.op = holds, op
+        inputs = {"tvs": torch.zeros((B, *s.field_shape), dtype=dtype, device=s.device)}
+
+        def program(ctl, tvs):
+            return {"tvs": mg._twolevel_lanes(level, tvs, ctl)}
+
+        super().__init__(program, inputs, s.device, need=B * mg._lane_bytes(level),
+                         capture=capture)
+
+    def __call__(self, tvs):
+        return super().__call__(tvs=tvs)["tvs"]

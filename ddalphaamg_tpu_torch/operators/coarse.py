@@ -90,12 +90,14 @@ def neighbor(v: torch.Tensor, k: int, lattice, halos=None) -> torch.Tensor:
     return w.reshape(shape)
 
 
-def compress(blocks: torch.Tensor) -> torch.Tensor:
+def compress(blocks: torch.Tensor, out=None) -> torch.Tensor:
     """complex64 blocks [..., V] -> contiguous bfloat16 pairs [..., V, 2]
-    (round to nearest even, as the JAX package's astype)."""
+    (round to nearest even, as the JAX package's astype), written into out
+    if given."""
     if blocks.dtype != torch.complex64:
         raise TypeError(f"bf16 block storage rounds complex64 blocks, got {blocks.dtype}")
-    return torch.view_as_real(blocks.contiguous()).to(torch.bfloat16)
+    pairs = torch.view_as_real(blocks.contiguous())
+    return pairs.to(torch.bfloat16) if out is None else out.copy_(pairs)
 
 
 def widen(blocks: torch.Tensor) -> torch.Tensor:

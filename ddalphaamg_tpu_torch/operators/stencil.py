@@ -275,6 +275,18 @@ class CoarseStencilSoA(_SoALayout):
         return dataclasses.replace(self, Pk=compress(self.Pk),
                                    Pk_inv=compress(self.Pk_inv))
 
+    def refresh(self, view=None):
+        """After Pk was rewritten in place: Pk_inv recomputed into its
+        storage and, given the bf16 view (compress), both written rounded
+        into the view's storage (a setup's device programs read these
+        tensors: Multigrid.re_setup)."""
+        inv = torch.linalg.inv(self.Pk[0].permute(2, 1, 0))
+        self.Pk_inv.copy_(inv[None].permute(0, 3, 2, 1))
+        del inv
+        if view is not None:
+            compress(self.Pk, out=view.Pk)
+            compress(self.Pk_inv, out=view.Pk_inv)
+
     @property
     def dof(self) -> int:
         return self.Pk.shape[1]

@@ -20,8 +20,12 @@ measures the launch.  The profiler records
 
 The module-level PROF is switched on by DDAAMG_PROFILE=1 or the cli's
 --profile; api.Solver then times the fine operator and the preconditioner
-of every solve.  Switched off, nothing is wrapped: the solve runs as
-without the profiler, with no extra synchronization or launch.
+of every solve, and the setup times its phases under the JAX package's
+names and depths (mg/hierarchy._prof: "setup: initial tv smoothing",
+"setup: gram schmidt", "setup: tv cycles (F-cycle)", "setup: P/Galerkin
+rebuild", "setup: block inverses", "setup: coarsest dense inverse").
+Switched off, nothing is wrapped: the solve and the setup run as without
+the profiler, with no extra synchronization or launch.
 
 Memory: hbm_highwater_mb is the caching allocator's high-water mark of a
 card (torch.cuda.max_memory_allocated), solver_memory_mb a ledger of the

@@ -173,6 +173,8 @@ class GraphProgram:
     are accounted from its recording and its loops' trips
     (kernels.GraphLaunches), so the counts equal the host loop's."""
 
+    per_depth = False       # a Multigrid keeps one program of a kind (True: of a depth)
+
     def __init__(self, program, inputs: dict, device, need: int = 0, capture=CudaGraph):
         self.inputs = inputs
         self.graph = capture(device)

@@ -307,14 +307,14 @@ def test_one_graph_per_batch_dtype_and_view_dropped_with_the_stencil(stub_graphs
 def test_a_setup_keeps_one_graph_and_a_new_setup_drops_them(stub_graphs, monkeypatch):
     monkeypatch.setattr(hierarchy, "GRAPH_DEVICES", ("cuda", "cpu"))
     kept = []
-    real = Multigrid._coarsest_graph
+    real = Multigrid._program
 
-    def watch(self, level, s, B):
-        g = real(self, level, s, B)
-        kept.append(len(level.graphs))
+    def watch(self, cls, B, dtype, m=0, op=None):
+        g = real(self, cls, B, dtype, m, op)
+        kept.append((sorted(self.programs), sum(len(lv.graphs) for lv in self._levels())))
         return g
 
-    monkeypatch.setattr(Multigrid, "_coarsest_graph", watch)
+    monkeypatch.setattr(Multigrid, "_program", watch)
     p = config.parse_ini("""configuration: none
 number of levels: 2
 d0 global lattice: 4 4 4 4
@@ -330,7 +330,10 @@ mixed precision: 1
     s = api.Solver(p, device="cpu")
     s.set_conf(rough_field((4, 4, 4, 4), seed=3))
     s.setup()
-    assert stub_graphs.captures > 0 and max(kept) == 1
+    # the setup's coarsest GCRs are nested in its sweeps' one program, which
+    # one capture serves for the whole setup
+    assert stub_graphs.captures == 1 and kept
+    assert all(k == ([("SetupCycleGraph", 4, 0, torch.complex64)], 0) for k in kept)
     lvl = s.mg._levels()[-1]
     assert not lvl.graphs and not s.mg.programs
     x, info = s.solve(config.make_rhs("ones", s.lattice))

@@ -1,6 +1,7 @@
-"""The rank side of tests/test_torch_parallel.py, tests/test_torch_grid4d.py
-and tests/test_torch_setup_api.py: functions that every rank of a spawned
-process grid runs (parallel/launch.run_ranks).  This module imports the
+"""The rank side of tests/test_torch_parallel.py, tests/test_torch_grid4d.py,
+tests/test_torch_setup_api.py and tests/test_torch_setup_graph.py:
+functions that every rank of a spawned process grid runs
+(parallel/launch.run_ranks).  This module imports the
 port and never JAX, so the spawned ranks stay free of it; the test process
 makes the inputs with numpy and holds the results against the JAX package
 and the single-rank port (which runs the same functions with mesh None)."""
@@ -154,6 +155,35 @@ def solve_multi(mesh, ini, U, rhs):
             [s.true_residual(xi, bi) for xi, bi in zip(x, rhs)])
 
 
+def setup_programs(mesh, ini, U):
+    """A Solver's setup on the mesh (None: one rank) with device programs
+    allowed on the CPU through the stand-in capture: (programs asked for,
+    captures, programs held after the setup), none on a mesh."""
+    from torch_graph_stub import StubGraph
+
+    from ddalphaamg_tpu_torch.mg import hierarchy
+
+    asked = []
+    real = Multigrid._program
+
+    def program(self, *args, **kwargs):
+        asked.append(args[0].__name__)
+        return real(self, *args, **kwargs)
+
+    saved = hierarchy.GRAPH_DEVICES, hierarchy.GRAPH_CAPTURE
+    hierarchy.GRAPH_DEVICES, hierarchy.GRAPH_CAPTURE = ("cuda", "cpu"), StubGraph
+    Multigrid._program = program
+    StubGraph.captures = 0
+    try:
+        s = api.Solver(config.parse_ini(ini), device="cpu", mesh=mesh)
+        s.set_conf(U, links_have_bc=True)
+        s.setup()
+    finally:
+        hierarchy.GRAPH_DEVICES, hierarchy.GRAPH_CAPTURE = saved
+        Multigrid._program = real
+    return asked, StubGraph.captures, len(s.mg.programs)
+
+
 def solve_sharded_levels(mesh, ini, U, inner_tol_clip=None):
     """Solver whose intermediate levels are all sharded (min_local_sites 0;
     mesh None: one rank): (x, iterations, exact relres, per level (sharded,
@@ -208,7 +238,7 @@ def run(mesh, device, cases):
     fns = {"fine_full_op": fine_full_op, "coarse_hops": coarse_hops,
            "mg_cycle": mg_cycle, "solve": solve, "odd_offset": odd_offset,
            "solve_sharded_levels": solve_sharded_levels, "solve_multi": solve_multi,
-           "scan": scan, "faces": faces, "fgcr": fgcr}
+           "scan": scan, "faces": faces, "fgcr": fgcr, "setup_programs": setup_programs}
     return {name: fns[fn](mesh, **kw) for name, (fn, kw) in cases.items()}
 
 
