@@ -31,7 +31,18 @@ Phases, one result line each (or a few), in order:
               faces, and on the (2, 2, 2, 2) mesh, (4, 4, 4, 4) with faces
               on all four axes (faces cut from a random global field by
               parallel/comm.face), batch 1 and
-              28, and the batched applies of the setup (K4 at 4^4, batch 256:
+              28, K8 (the
+              grid's collectives over peer pointers, parallel/peer.py) with
+              the ranks of the (1, 2, 1, 1) and (1, 1, 2, 2) grids as Peers
+              of this one process (each rank's kernels on a stream of its
+              own): the exchange of the fine half-spinor faces and of the
+              depth-1 coarse faces, the all-reduce of [12, 50] products and
+              of [12] norms, the gather of the coarsest level's slabs, bit
+              for bit against the plain versions, and under skew (a
+              (1, 1, 1, 4) ring, one rank lagging: one-way shifts,
+              all-reduces and gathers of alternating sizes, some above the
+              buffers), and the batched applies
+              of the setup (K4 at 4^4, batch 256:
               full, hop and self_inv odd, the Schur inverse's column build;
               K4 at 8^4, masked full, batch 56 for the Galerkin build and
               128 for the block inverses' columns), with the max relative
@@ -179,7 +190,13 @@ Phases, one result line each (or a few), in order:
               its times are no scaling numbers); every rank must agree, the
               exact relres recomputed by rank 0 from the gathered x must be
               < 1e-10 in <= 12 outer iterations, within 1 of phase 4, and
-              every kernel of the path, K5 included, must have run
+              every kernel of the path, K5 included, must have run; the
+              replicated coarsest level's GCR runs as graph replays on every
+              rank (their count and captures per rank; the gloo-sharded
+              levels keep host loops), one coarsest call replayed and run as
+              a host loop on the same right-hand side must be bit-equal
+              (their ms beside), and a warm solve with the replays is timed
+              beside one with host loops only (the port before)
   5b. grid4d  the domain-decomposed main path on a (1, 1, 2, 2) grid that
               splits y and x: four gloo ranks on this card, local lattice
               (16, 16, 8, 8), depth 1's slab (8, 8, 4, 4) sharded (K5 with
@@ -191,8 +208,13 @@ Phases, one result line each (or a few), in order:
               4c runs them, their iterations within 2 % of phase 4c's, the
               exact relres checked as there; the phase's wall time
   6. nccl     with two or more cards, the same solve with the "nccl"
-              transport on one card per rank ((1, 1, 2, 2) with four cards);
-              with one card a line says it was not run
+              transport on one card per rank ((1, 1, 2, 2) with four cards):
+              every inner restart one replay of InnerRestartGraph with the
+              slabs' exchanges, all-reduces and gathers inside as K8 (NCCL's
+              work cannot live in a graph's WHILE body:
+              scripts/probe_torch_nccl_graph.py), one inner restart held
+              bit-equal to its host loops on every rank; with one card a
+              line says it was not run
   7. direct   phase 4 with the JAX package's accelerator options on (bf16
               coarse blocks, coarsest dense Schur inverse, direct block
               solves; set on the parsed parameters): setup, the time of
@@ -320,10 +342,11 @@ PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "setup-graph": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
                 "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "K7", "G"),
-                "sharded": ("K1", "K2", "K3", "K4", "K5"),
-                "grid4d": ("K1", "K2", "K3", "K4", "K5"),
+                "sharded": ("K1", "K2", "K3", "K4", "K5", "K7", "G"),
+                "grid4d": ("K1", "K2", "K3", "K4", "K5", "K7", "G"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
-                "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6"),
+                "sharded-direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K5", "K5-bf16", "K6",
+                                   "K7", "G"),
                 "multi": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "multi-direct": ("K1", "K2", "K3", "K4-bf16", "K6", "K7", "G"),
                 "library": ("K1", "K2", "K3", "K4", "K7", "G")}
@@ -986,10 +1009,27 @@ def check_kernels(results, U32):
                     stacked_einsum(blocks, v, clat, terms, mask, parity=parity))
         del Pk, Pk16
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
+    check_peer_kernels(results, gen, lat, d)
     check_dense_kernel(results, gen, d, lat)
     check_gram_schmidt(results, gen)
     check_step_launches(gen)
     check_rough32_kernels(results, gen, U32, params.m0, params.csw, ROUGH32_SHAPES)
+
+
+def jrow_orthonormalize(W, Q, j: int, w, q):
+    """The library call's Gram-Schmidt: classical Gram-Schmidt of w [B, n]
+    against the first j rows of W [B, m, n] through cuBLAS products over
+    those rows, applied alike to q, normalized, written to row j of W and
+    Q (the slab step before it took all m rows with a mask)."""
+    if j:
+        h = (W[:, :j].conj() @ w.unsqueeze(-1)).transpose(-1, -2)
+        w = w - (h @ W[:, :j]).squeeze(1)
+        q = q - (h @ Q[:, :j]).squeeze(1)
+    wn = torch.linalg.vector_norm(w, dim=-1)
+    inv = wn.masked_fill(wn == 0, 1.0).reciprocal()[:, None]
+    torch.mul(w, inv, out=W[:, j])
+    torch.mul(q, inv, out=Q[:, j])
+    return W[:, j], Q[:, j]
 
 
 def check_gram_schmidt(results, gen):
@@ -1001,14 +1041,12 @@ def check_gram_schmidt(results, gen):
     relative error of the four.  The times: a step as raw launches
     captured in a CUDA graph (graph_ms), for the kernel, the plain version
     and the library call, the sequence the port ran before K7 took the
-    whole step (the j-row torch products through cuBLAS,
-    device_gmres.orthonormalize with the sum over the ranks the identity,
+    whole step (the j-row torch products through cuBLAS, jrow_orthonormalize,
     then vecdot, the updates, the iteration count, the norm and the stop
     test).  Bound: (2j + 8) n elements a lane (the rows below j of W and
     Q, w, q, r and x read; rows j, x and r written) over 3.35 TB/s."""
     from ddalphaamg_tpu_torch import kernels
     from ddalphaamg_tpu_torch.operators import cuda_gcr
-    from ddalphaamg_tpu_torch.solvers import device_gmres
 
     for label, n, m, rows, batches, dtype in K7_CASES:
         for B in batches:
@@ -1045,7 +1083,7 @@ def check_gram_schmidt(results, gen):
                     cuda_gcr.gcr_step_plain(*args(st))
 
                 def library(st, j=j):
-                    wo, qo = device_gmres.orthonormalize(W, Q, j, w, q, allsum=lambda a: a)
+                    wo, qo = jrow_orthonormalize(W, Q, j, w, q)
                     cuda_gcr.update_step(wo, qo, st["x"], st["r"], st["rz"], st["go"],
                                          st["stop"], None, st["rn"], st["iters"])
 
@@ -1164,6 +1202,184 @@ def check_halo_kernels(results, gen, glat, d):
         del Pk, Pk16
 
 
+def check_peer_kernels(results, gen, lat, d):
+    """K8 (parallel/peer.py, csrc/peer.cu) with the ranks of the (1, 2, 1, 1)
+    and (1, 1, 2, 2) grids as Peers of this one process on this card
+    (Peers.local_group: each rank's kernels on a stream of its own, all in
+    flight together) at the shapes of the grid solve of rough16 (lat, d):
+    the exchange of the fine half-spinor faces and of the depth-1 coarse
+    faces (every split axis, both ways, batch 1), the all-reduce of a GCR's
+    [12, 50] products and of [12] norms, the gather of the coarsest level's
+    slabs; held bit for bit against the plain versions (copies, the sum in
+    rank order, the stack).  Bound: every rank's inputs read and outputs
+    written once over 3.35 TB/s (one card holds all the ranks here)."""
+    from ddalphaamg_tpu_torch.parallel import peer
+    from ddalphaamg_tpu_torch.parallel.mesh import active_axes, local_lattice
+
+    dev = torch.device("cuda")
+    c64 = torch.complex64
+    for dims in ((1, 2, 1, 1), (1, 1, 2, 2)):
+        group = peer.Peers.local_group(dims, dev)
+        P = len(group)
+        streams = [torch.cuda.Stream(dev) for _ in range(P)]
+
+        def on_all(fn):
+            """fn(rank) on every rank's stream, joined to the current one."""
+            cur = torch.cuda.current_stream(dev)
+            outs = []
+            for r, st in enumerate(streams):
+                st.wait_stream(cur)
+                with torch.cuda.stream(st):
+                    outs.append(fn(r))
+            for st in streams:
+                cur.wait_stream(st)
+            return outs
+
+        def flat(outs):
+            return torch.cat([torch.view_as_real(o).reshape(-1) if o.is_complex()
+                              else o.reshape(-1) for per in outs for o in per])
+
+        meshes = [g.mesh for g in group]
+        fine_loc = local_lattice(meshes[0], lat)
+        coarse_loc = local_lattice(meshes[0], tuple(n // 2 for n in lat))
+        axes = active_axes(meshes[0], lat)
+        cases = {"fine half-spinor faces": (1, 2, 3, fine_loc),
+                 f"coarse faces d={d}": (1, d, 1, coarse_loc)}
+        for what, (B, a, b, loc) in cases.items():
+            V = math.prod(loc)
+            sends = [[(mu, *(torch.randn((B, a * b, V // loc[mu]), generator=gen, dtype=c64,
+                                         device=dev) for _ in range(2))) for mu in axes]
+                     for _ in range(P)]
+
+            def kernel():
+                posted = on_all(lambda r: group[r].post(sends[r]))
+                return flat(on_all(lambda r: group[r].finish(posted[r])))
+
+            def plain():
+                return flat([[f for pair in peer.exchange_plain(sends, meshes, r) for f in pair]
+                             for r in range(P)])
+
+            if not torch.equal(kernel(), plain()):
+                fail(f"K8 exchange of the {what} on {dims} differs from the plain copies")
+            nbytes = sum(t.numel() * 8 for per in sends for _, x, y in per for t in (x, y))
+            compare(results, "K8", f"K8 exchange post + finish, {what}, grid {dims}, batch {B}",
+                    kernel, plain, c64, (2 * nbytes, 0))
+        for what, shape, dtype in (("GCR products [12, 50]", (12, 50), c64),
+                                   ("norms [12]", (12,), torch.float32)):
+            parts = [torch.randn(shape, generator=gen, dtype=dtype, device=dev) for _ in range(P)]
+
+            def kernel():
+                return flat([[o] for o in on_all(lambda r: group[r].allreduce(parts[r]))])
+
+            def plain():
+                return flat([[peer.allreduce_plain(parts)] for _ in range(P)])
+
+            if not torch.equal(kernel(), plain()):
+                fail(f"K8 all-reduce of the {what} on {dims} differs from the rank-order sum")
+            nbytes = 2 * P * parts[0].numel() * parts[0].element_size()
+            n = parts[0].numel() * (2 if dtype == c64 else 1)
+            compare(results, "K8", f"K8 all-reduce, {what}, grid {dims}", kernel, plain,
+                    c64, (nbytes, P * (P - 1) * n),
+                    library_fn=lambda: flat([[torch.stack(parts).sum(0)]]),
+                    library_ref=lambda want, n=n: want[:n])
+        Vc = math.prod(lat) // 256 // P         # a rank's slab of the coarsest level
+        parts = [torch.randn((1, d, Vc), generator=gen, dtype=c64, device=dev) for _ in range(P)]
+
+        def kernel():
+            return flat([[o] for o in on_all(lambda r: group[r].allgather(parts[r]))])
+
+        def plain():
+            return flat([[peer.allgather_plain(parts)] for _ in range(P)])
+
+        if not torch.equal(kernel(), plain()):
+            fail(f"K8 gather on {dims} differs from the stack")
+        nbytes = (1 + P) * P * parts[0].numel() * 8
+        compare(results, "K8", f"K8 gather to the coarsest level, d={d}, grid {dims}", kernel,
+                plain, c64, (nbytes, 0), library_fn=lambda: flat([[torch.stack(parts)]]),
+                library_ref=lambda want: want[:P * parts[0].numel() * 2])
+        torch.cuda.synchronize()
+        group[0].close()
+    check_peer_skew(gen)
+
+
+def check_peer_skew(gen):
+    """K8's double buffers and acknowledgements under skew: the ranks of a
+    (1, 1, 1, 4) ring in this process, rank 1 sleeping before each of its
+    calls and no synchronization between calls; one-way shifts along x
+    (nothing flows back to hold the sender but K8's acknowledgements),
+    all-reduces and gathers, each of alternating sizes whose chunks fall
+    differently, some above the buffers (successive calls); every result
+    bit for bit the plain versions'.  One thread launches for all ranks, so
+    each collective is launched for every rank before the next, and the
+    allocator holds memory for every rank's stream beforehand: a host call
+    that waited for the card (a driver allocation) would wait for kernels
+    that wait for ranks not yet launched."""
+    from ddalphaamg_tpu_torch.parallel import peer
+
+    t0 = time.perf_counter()
+    group = peer.Peers.local_group((1, 1, 1, 4), torch.device("cuda"))
+    P, calls = len(group), 12
+    streams = [torch.cuda.Stream() for _ in range(P)]
+
+    def rand(n, dtype):
+        return torch.randn(n, generator=gen, dtype=dtype, device="cuda")
+
+    c64, f32 = torch.complex64, torch.float32
+    ex_sizes = [3 * peer.ROW + 5, peer.MAILBOX // 8 + 1000, 7]
+    ar_sizes = [(12 * 50, c64), (peer.REDUCE // 4 + 333, f32), (5, torch.float64)]
+    ag_sizes = [56 * 64, 1, peer.GATHER // 8 + 17]
+    sends = [[rand(ex_sizes[c % 3], c64) for c in range(calls)] for _ in range(P)]
+    parts = [[rand(ar_sizes[c % 3][0], ar_sizes[c % 3][1]) for _ in range(P)] for c in range(calls)]
+    stacks = [[rand(ag_sizes[c % 3], c64) for _ in range(P)] for c in range(calls)]
+    for st in streams:      # memory held for each rank's stream (the docstring)
+        with torch.cuda.stream(st):
+            held = [torch.empty(1 << 29, dtype=torch.uint8, device="cuda")]
+            held += [torch.empty(1 << 19, dtype=torch.uint8, device="cuda") for _ in range(16)]
+        del held
+    got = [[] for _ in range(P)]
+    cur = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    for st in streams:
+        st.wait_stream(cur)
+
+    def each_rank(fn):
+        for r, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                fn(r)
+
+    for c in range(calls):
+        posted = {}
+
+        def post(r, c=c):
+            if r == 1:
+                torch.cuda._sleep(1_000_000)
+            posted[r] = group[r].post([(3, None, sends[r][c])])
+
+        each_rank(post)
+        each_rank(lambda r, c=c: got[r].append(("shift", c, group[r].finish(posted[r])[0])))
+        each_rank(lambda r, c=c: got[r].append(("sum", c, group[r].allreduce(parts[c][r]))))
+        each_rank(lambda r, c=c: got[r].append(("stack", c, group[r].allgather(stacks[c][r]))))
+    for st in streams:
+        cur.wait_stream(st)
+    torch.cuda.synchronize()
+    for r in range(P):
+        for kind, c, out in got[r]:
+            if kind == "shift":
+                want = sends[group[r].mesh.neighbor(3, -1)][c]
+            elif kind == "sum":
+                want = peer.allreduce_plain(parts[c])
+            else:
+                want = peer.allgather_plain(stacks[c])
+            if not torch.equal(out, want):
+                fail(f"K8 under skew: rank {r}'s {kind} of call {c} differs from the plain version")
+    group[0].close()
+    print(f"  K8 under skew on (1, 1, 1, 4), rank 1 lagging: {calls} one-way shifts, "
+          f"all-reduces and gathers of alternating sizes a rank, bit-equal to the plain "
+          f"versions ({time.perf_counter() - t0:.2f} s)", flush=True)
+    del got, sends, parts, stacks
+    torch.cuda.empty_cache()
+
+
 def dense_cases(d, lat):
     """K6's shapes on rough16 with their block lists: the coarsest level's
     Schur inverse (n / 2 = d * 4^4 / 2 = 7168, one block) and the depth-1
@@ -1227,16 +1443,22 @@ def check_dense_kernel(results, gen, d, lat):
 def k6_device_ms(run):
     """K6's device time (ms) and kernel count while run() executes
     (device_time_by_kernel); the count must equal the wrapper's launches
-    in that run."""
+    in that run.  The profiler's buffers can drop kernel records of a run
+    with many thousands (it dropped 59 of 726 K6 records once in a method-3
+    warm solve with host loops): a profile that lost any is taken once more,
+    and a second loss fails."""
     from ddalphaamg_tpu_torch import kernels
 
-    before = kernels.counts()["K6"]
-    _, _, table = device_time_by_kernel(run)
-    events, ms = table.get("K6", (0, 0.0))
-    launches = kernels.counts()["K6"] - before
-    if events != launches:
-        fail(f"the profiler saw {events} K6 kernels, the wrapper launched {launches}")
-    return ms, launches
+    for attempt in (1, 2):
+        before = kernels.counts()["K6"]
+        _, _, table = device_time_by_kernel(run)
+        events, ms = table.get("K6", (0, 0.0))
+        launches = kernels.counts()["K6"] - before
+        if events == launches:
+            return ms, launches
+        print(f"  profile {attempt}: the profiler saw {events} K6 kernels, the wrapper "
+              f"launched {launches}", flush=True)
+    fail(f"the profiler saw {events} K6 kernels, the wrapper launched {launches}, twice")
 
 
 def exact_relres(solver, x, rhs):
@@ -2335,6 +2557,7 @@ def sharded_rank(mesh, device, options=False, methods=()):
     solver = api.Solver(rough16_params(options), device=device, mesh=mesh)
     plaq, _ = solver.read_conf()
     status = solver.setup()
+    setup_graphs = dict(solver.mg.graph_stats)
     rhs = config.make_rhs("ones", solver.lattice)
     x, info = solver.solve(rhs)
     out = dict(rank=mesh.rank, plaq=plaq, setup=status.setup_time,
@@ -2345,10 +2568,27 @@ def sharded_rank(mesh, device, options=False, methods=()):
                counts=kernels.counts(), build_times=solver.mg.build_times,
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                x_sum=complex(x.sum()), k5_axes=dict(k5_axes),
-               sharded=[lvl.stencil.mesh is not None for lvl in solver.mg._levels()])
+               sharded=[lvl.stencil.mesh is not None for lvl in solver.mg._levels()],
+               setup_graphs=setup_graphs, graphs=dict(solver.mg.graph_stats),
+               uses_graphs=[solver.mg.uses_graphs(torch.zeros(1, device=device), lvl)
+                            for lvl in solver.mg._levels()])
     if mesh.rank == 0:    # exact residual from the gathered x, logical operator
         out["exact"] = exact_relres(solver, x, rhs)
         out["finite"] = bool(np.isfinite(x).all()) and x.shape == (*solver.lattice, 4, 3)
+    # warm solves: the replicated level's GCR as replays (this port), then
+    # every GCR of the grid a host loop (the port before)
+    warm = {"replays": [], "host loops": []}
+    for way in ("replays", "host loops"):
+        with contextlib.nullcontext() if way == "replays" else host_loops():
+            _, wi = solver.solve(rhs)
+        warm[way].append(wi.solve_time)
+        if wi.iterations != info.iterations:
+            raise RuntimeError(f"a warm solve ({way}) took {wi.iterations} iterations, "
+                               f"the first {info.iterations}")
+    out["warm"] = warm
+    out["coarsest_check"] = coarsest_replay_check(solver.mg, device)
+    if solver.mg.uses_graphs(torch.zeros(1, device=device)):     # the sharded levels too
+        out["inner_check"] = inner_replay_check(solver.mg, device, rough16_params().restart_length)
     del solver
     out["methods"] = {}
     for method in methods:
@@ -2366,6 +2606,51 @@ def sharded_rank(mesh, device, options=False, methods=()):
         out["methods"][method] = run
         del s
     return out
+
+
+def coarsest_replay_check(mg, device):
+    """The replicated coarsest level's GCR on a grid: one replay of its
+    graph (mg/coarsest.CoarsestGraph) against the host loop (coarsest_gcr)
+    on the same right-hand side, drawn alike on every rank; bit-equality
+    and each one's ms (CUDA events, 10 calls)."""
+    from ddalphaamg_tpu_torch.mg.coarsest import coarsest_gcr
+
+    lvl = mg._levels()[-1]
+    s, cfg = mg._cycle_view(lvl), mg.cfg
+    gen = torch.Generator(device=device).manual_seed(77)
+    b = torch.randn((1, *s.field_shape), generator=gen, dtype=s.dtype, device=device)
+    args = (cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart, mg._odd_even(lvl))
+    g = mg._coarsest_graph(lvl, s, 1)
+    xg, cg = g(b)
+    xh, ch = coarsest_gcr(s, b, *args)
+    return dict(equal=bool(torch.equal(xg, xh) and torch.equal(cg, ch)),
+                iterations=float(cg[0, 0]), replay_ms=cuda_ms(lambda: g(b)),
+                host_ms=cuda_ms(lambda: coarsest_gcr(s, b, *args)),
+                replicated=lvl.stencil.mesh is None)
+
+
+def inner_replay_check(mg, device, m):
+    """On a grid whose sharded levels run as device programs (nccl, K8):
+    one inner restart (InnerRestartGraph: the slab GCR of length m with
+    the cycle, its exchanges, all-reduces and gathers inside) from r = ones
+    against the host loops, bit-equality of z, the iterations and the
+    counters, and each one's ms (CUDA events, 5 calls)."""
+    s = mg.fine.stencil
+    r = torch.ones((1, *s.field_shape), dtype=s.dtype, device=device)
+    zero = dict(coarse_iterations=0.0, coarse_matvecs=0.0, coarsest_inverse_applies=0.0)
+    mg.stats.update(zero)
+    zg, ig = mg.inner_restart(r, 1e-5, m=m)
+    stats_g = dict(mg.stats)
+    mg.stats.update(zero)
+    with host_loops():
+        zh, ih = mg.inner_restart(r, 1e-5, m=m)
+        stats_h = dict(mg.stats)
+        host_ms = cuda_ms(lambda: mg.inner_restart(r, 1e-5, m=m), reps=5)
+    parts = dict(z=bool(torch.equal(zg, zh)), iterations=bool(torch.equal(ig, ih)),
+                 counters=stats_g == stats_h)
+    return dict(equal=all(parts.values()), parts=parts, iterations=float(ig[0]),
+                replay_ms=cuda_ms(lambda: mg.inner_restart(r, 1e-5, m=m), reps=5),
+                host_ms=host_ms)
 
 
 def sharded_path(name, dims, transport, devices, single_iterations, options=False,
@@ -2406,8 +2691,40 @@ def sharded_path(name, dims, transport, devices, single_iterations, options=Fals
     if options and r0["coarse_matvec_average"] != 0:
         fail(f"{name}: the solve ran the coarsest GCR")
     check_counts(name if name in PATH_KERNELS else "sharded", r0["counts"])
-    if r0["counts"]["G"]:
-        fail(f"{name}: a rank replayed a CUDA graph (a mesh keeps the host loop)")
+    for r in res:
+        g, c = r["graphs"], r["coarsest_check"]
+        phase(name, t0, f"rank {r['rank']}: the replicated coarsest level's GCR as graph "
+              f"replays: {g['replays']} replays ({r['setup_graphs']['replays']} in the "
+              f"setup), {g['captures']} captures ({g['capture_seconds']:.3f} s); levels "
+              f"that run graphs {r['uses_graphs']}; warm solve with the replays "
+              f"{r['warm']['replays'][0]:.3f} s, with host loops only (the port before) "
+              f"{r['warm']['host loops'][0]:.3f} s; "
+              f"one coarsest call ({c['iterations']:.0f} iterations) "
+              f"{'bit-equal' if c['equal'] else 'DIFFERS'}: replay {c['replay_ms']:.3f} ms, "
+              f"host loop {c['host_ms']:.3f} ms")
+    if not r0["coarsest_check"]["replicated"] or not r0["coarsest_check"]["equal"]:
+        fail(f"{name}: rank 0's coarsest replay is not bit-equal to its host loop")
+    if any(r["graphs"]["replays"] == 0 for r in res):
+        fail(f"{name}: a rank ran its replicated coarsest level without a graph")
+    if transport == "gloo" and any(r["uses_graphs"][0] for r in res):
+        fail(f"{name}: a gloo-sharded level ran as a device program")
+    if transport == "nccl":
+        for r in res:
+            c = r.get("inner_check")
+            if c is None:
+                fail(f"{name}: rank {r['rank']}'s sharded levels kept the host loops")
+            phase(name, t0, f"rank {r['rank']}: one inner restart as one replay of "
+                  f"InnerRestartGraph with its collectives inside (K8 over peer pointers: "
+                  f"NCCL's work cannot live in a graph's WHILE body, "
+                  f"scripts/probe_torch_nccl_graph.py), {c['iterations']:.0f} iterations, "
+                  f"{'bit-equal to' if c['equal'] else 'DIFFERS from'} its host loops "
+                  f"{c['parts']}: "
+                  f"replay {c['replay_ms']:.3f} ms, host loops {c['host_ms']:.3f} ms")
+            if not c["equal"]:
+                fail(f"{name}: rank {r['rank']}'s inner restart replay differs from its host "
+                     "loops")
+        if r0["counts"]["K8"] == 0:
+            fail(f"{name}: no collective ran as K8")
     phase(name, t0, f"levels sharded {r0['sharded']}; rank 0's K5 launches by the axes "
           f"of their faces: {r0['k5_axes']}")
     split = "".join("tzyx"[mu] for mu in range(4) if dims[mu] > 1)

@@ -108,9 +108,10 @@ class SolveInfo:
     converged: bool
     solve_time: float
     # coarsest iterations per outer iteration (one per dense-inverse apply
-    # with coarsest direct, as in the JAX package); on a card with one rank
-    # the coarsest GCR is a CUDA graph replay whose [B, 3] counters come out
-    # of the graph with x (mg/coarsest.py), elsewhere the host loop's
+    # with coarsest direct, as in the JAX package); on a card (one rank or
+    # any grid, whose coarsest level is replicated) the coarsest GCR is a
+    # CUDA graph replay whose [B, 3] counters come out of the graph with x
+    # (mg/coarsest.py), elsewhere the host loop's
     coarse_average: float = 0.0
     # coarsest GCR operator applications per outer iteration, and dense
     # inverse applies in the solve (the JAX package's SolveInfo fields)
@@ -728,10 +729,22 @@ class Solver:
                              preconditioner=prec, tol=tol,
                              restart_length=p.restart_length,
                              max_restarts=p.max_restarts, inner_dtype=inner.dtype,
-                             mesh=self.mesh)
+                             mesh=self.mesh, single_reduce=self._single_reduce())
         return fgmres(self._profiled(self.outer.full_op, fine, True), b, x0=x0,
                       preconditioner=prec, tol=tol, restart_length=p.restart_length,
-                      max_restarts=p.max_restarts, mesh=self.mesh)
+                      max_restarts=p.max_restarts, mesh=self.mesh,
+                      single_reduce=self._single_reduce())
+
+    def _single_reduce(self):
+        """The Arnoldi form of the host FGMRES (solvers/fgmres.py), the JAX
+        package's policy (its api.py:331-343): "fused" under a mesh, where
+        each all-reduce and each read of the device costs most, False on
+        one rank; DDAAMG_SINGLE_REDUCE=0/1/fused/pythagoras overrides it
+        (1 is "fused")."""
+        env = os.environ.get("DDAAMG_SINGLE_REDUCE")
+        if env is not None:
+            return {"0": False, "1": "fused"}.get(env, env)
+        return "fused" if self.mesh is not None else False
 
     def true_residual(self, x, rhs) -> float:
         """||rhs - D x|| / ||rhs|| in complex128 (the reference's

@@ -78,6 +78,13 @@ KERNELS = {
                  "ddalphaamg_tpu_torch/csrc/gcr.cu",
                  "ddalphaamg_tpu/solvers/device_gmres.py:106-136 (XLA einsums over all m "
                  "rows and fused updates inside the lax.while_loop, no pallas_call)"),
+    "K8": Kernel("K8 grid collectives over peer pointers (face exchange post / finish, "
+                 "all-reduce, gather), which a graph's loop body can hold", "cuda",
+                 "ddalphaamg_tpu_torch/csrc/peer.cu",
+                 "ddalphaamg_tpu/parallel/halo.py:60-114 (lax.ppermute), "
+                 "ddalphaamg_tpu/solvers/device_gmres.py:111-136 (lax.psum) and "
+                 "ddalphaamg_tpu/mg/hierarchy.py:223-232 (the gather to the replicated "
+                 "level), no pallas_call"),
     "G": Kernel("G CUDA graph replays: the coarsest GCR, the inner restart, the cycle "
                 "(one-body WHILE loops with a device-side index)",
                 "cuda", "ddalphaamg_tpu_torch/csrc/graph.cu",
@@ -182,6 +189,16 @@ _SIGNATURES = {
     "ddaamg_gcr_sync_words": [_I, _I],
     "ddaamg_gcr_step_c64": [_P] * 15 + [_I, _I, _L, _I, _P],
     "ddaamg_gcr_step_c128": [_P] * 15 + [_I, _I, _L, _I, _P],
+    "ddaamg_peer_handle_bytes": [],
+    "ddaamg_peer_row": [],
+    "ddaamg_peer_alloc": [_L, _P, _P],
+    "ddaamg_peer_open": [_P, _P],
+    "ddaamg_peer_close": [_P],
+    "ddaamg_peer_free": [_P],
+    "ddaamg_peer_post": [_P, _P, _P, _P, _P, _P, _I, _L, _P],
+    "ddaamg_peer_finish": [_P, _P, _P, _P, _P, _P, _I, _L, _P],
+    "ddaamg_peer_allreduce": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _L, _P],
+    "ddaamg_peer_allgather": [_P, _P, _P, _P, _P, _I, _P, _P, _L, _L, _L, _P],
     "ddaamg_graph_begin": [_P, _P],
     "ddaamg_graph_loop": [_P, _P, _P, _I, _I, _P],
     "ddaamg_graph_loop_end": [_P, _P, _P, _P, _I, _I, _P],

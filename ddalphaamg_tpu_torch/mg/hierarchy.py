@@ -68,10 +68,13 @@ free memory (one chunk unless the level is large).  slim_for_solve drops
 the test vectors and the full-precision coarse stencils (their bf16 views
 stay) once the setup is done.
 
-Device programs (mg/programs.py, mg/coarsest.py).  On a card with one
-rank (no mesh; uses_graphs) every inner restart is one replay of a CUDA
-graph that holds the fine GCR with the whole cycle inside (the JAX
-package's _inner_restart_impl), and every preconditioner call
+Device programs (mg/programs.py, mg/coarsest.py).  On a card (uses_graphs:
+one rank, or a grid whose sharded levels' collectives a graph's loop body
+can hold: nccl, through K8, parallel/peer.py) every inner restart is one
+replay of a CUDA graph that holds the fine GCR with the whole cycle inside
+(the JAX package's _inner_restart_impl, on a grid its sharded
+inner_restart_batch with the face exchanges, all-reduces and gathers
+inside), and every preconditioner call
 (Multigrid.__call__, methods 1 and 3) one replay of a graph of one cycle:
 each GCR in them, the fine one, the K-cycle's and the coarsest, is one
 loop with one body and a device-side iteration index, nested, and no
@@ -94,8 +97,12 @@ checks by identity every stencil, interpolation, inverse and smoother it
 captured.  re_setup outside a setup, shift_update, slim_for_solve, the
 start and end of a setup, Solver.set_conf and Solver.setup drop the
 graphs.  A capture or replay that fails raises.  The host loops
-(HostControl) stay for tensors on the CPU and for any mesh (its
-collectives cannot be captured).
+(HostControl) stay for tensors on the CPU and for the levels sharded over
+gloo, whose collectives no capture holds; a replicated level (the
+coarsest, or an intermediate level too small to shard) solves with no
+collective, so on any grid its coarsest GCR is a replay of its own graph,
+which every rank replays on the same gathered bits (the JAX package's
+replicated coarse levels, its hierarchy.py:223-232).
 
 Profiling: with profiling.PROF on, the setup's phases are regions by the
 JAX package's names and depths (_prof: the coarsest dense inverse, the
@@ -412,22 +419,25 @@ class Multigrid:
         """One coarsening rebuild: P from the level's test vectors, then the
         Galerkin coarse stencil (on next_mesh, or gathered whole onto every
         rank when the next level is replicated).  into: the (P, stencil,
-        bf16 view or None) of the last rebuild on one rank, whose storage the
-        new ones are written into and which are returned (re_setup in a
-        setup)."""
+        bf16 view or None) of the last rebuild, whose storage the new ones
+        are written into and which are returned (re_setup in a setup whose
+        sweeps are device programs)."""
         s = level.stencil
         mesh = s.mesh
+        gathers = mesh is not None and next_mesh is None
         P = build_interpolation(level.agg, level.test_vectors,
                                 out=None if into is None else into[0])
         column = GALERKIN_FIELDS * math.prod(s.field_shape) * s.dtype.itemsize
         Pk = build_coarse_blocks(s, level.agg, P, chunk=lane_chunk(
             2 * level.agg.num_vectors, column, s.device, mesh, held=self.graph_pool_bytes()),
-            out=None if into is None else into[1].Pk)
+            out=None if into is None or gathers else into[1].Pk)
+        if gathers:
+            Pk = gather_blocks(mesh, Pk, level.agg.coarse_lattice)
         if into is not None:
+            if gathers:         # the replicated level's blocks, whole, into its storage
+                into[1].Pk.copy_(Pk)
             into[1].refresh(into[2])
             return into[:2]
-        if mesh is not None and next_mesh is None:
-            Pk = gather_blocks(mesh, Pk, level.agg.coarse_lattice)
         return P, CoarseStencilSoA.from_blocks(Pk.to(self.cfg.dtype),
                                                _slab_geom(next_geom, next_mesh),
                                                mesh=next_mesh)
@@ -443,7 +453,7 @@ class Multigrid:
         view are rewritten in place instead, so that the programs, which
         read them, serve the whole setup; only the inverses are dropped."""
         self.require_setup("re_setup")
-        in_place = self._chunks is not None and self.uses_graphs(level.test_vectors)
+        in_place = self._chunks is not None and self.uses_graphs(level.test_vectors, level)
         if not in_place:
             self.drop_graphs()
         lvl = level
@@ -563,15 +573,22 @@ class Multigrid:
             return x, one
         if ctl is not None:
             return coarsest_gcr(s, b, *args, gcr=functools.partial(gcr_program, ctl))
-        if self.uses_graphs(b):
+        if self.uses_graphs(b, level):
             self.graph_stats["replays"] += 1
             return self._coarsest_graph(level, s, b.shape[0])(b)
         return coarsest_gcr(s, b, *args)
 
-    def uses_graphs(self, b) -> bool:
-        """Whether the GCR solves of lanes b run as CUDA graphs: on a card
-        (GRAPH_DEVICES) with one rank."""
-        return self.cfg.mesh is None and b.device.type in GRAPH_DEVICES
+    def uses_graphs(self, b, level: Optional[MGLevel] = None) -> bool:
+        """Whether the GCR solves of lanes b from `level` (the fine level by
+        default) down run as CUDA graphs: on a card (GRAPH_DEVICES), where
+        the level is replicated (no mesh: one rank, or a replicated level
+        of a grid, whose solves have no collective) or sharded over a
+        transport whose collectives a capture holds
+        (comm.CAPTURED_TRANSPORTS: NCCL).  The levels below a sharded level
+        share its mesh or are replicated, so its rule holds for them."""
+        mesh = (level or self.fine).stencil.mesh
+        return b.device.type in GRAPH_DEVICES and (
+            mesh is None or mesh.comm.transport in comm.CAPTURED_TRANSPORTS)
 
     def _coarsest_graph(self, level: MGLevel, s, B: int) -> CoarsestGraph:
         """The level's graph of the coarsest GCR for B lanes on stencil s
@@ -805,9 +822,13 @@ class Multigrid:
         counters [B, 3])."""
         s = self.fine.stencil
         ktol = self._kcycle_tol(0, self.cfg.kcycle_tol)
+        # driven from the host (HOST), the cycle is too: its coarsest GCR is
+        # then a replay of its own graph where the level allows one
+        # (_coarsest_solve), as on a gloo grid's replicated level
+        cycle_ctl = None if ctl is HOST else ctl
 
         def prec(w):
-            return self._cycle(0, w, ktol, ctl=ctl)
+            return self._cycle(0, w, ktol, ctl=cycle_ctl)
 
         z, iters, _, counters = gcr_program(
             ctl, op or s.full_op, r, m, rel_tol, n_restarts=1,
@@ -910,7 +931,7 @@ class Multigrid:
         out = []
         for c0 in range(0, n, chunk):
             lanes = padded_chunk(tvs, c0, chunk)
-            if self.uses_graphs(lanes):
+            if self.uses_graphs(lanes, level):
                 v = self._program(TwoLevelUpdateGraph, chunk, lanes.dtype, m=level.depth)(lanes)
             else:
                 v = self._twolevel_lanes(level, lanes)
@@ -957,7 +978,7 @@ class Multigrid:
         xs, coll = [], {}
         for c0 in range(0, n, chunk):
             lanes = padded_chunk(tvs, c0, chunk)
-            if self.uses_graphs(lanes):
+            if self.uses_graphs(lanes, level):
                 x, collect = self._program(SetupCycleGraph, chunk, lanes.dtype,
                                            m=level.depth)(lanes)
             else:

@@ -1,6 +1,10 @@
-"""The multigrid solve's device programs on a card with one rank: the
-inner restart and the cycle, each captured once into a CUDA graph
-(solvers/cuda_graph.GraphProgram) and replayed with no read of the device.
+"""The multigrid solve's device programs on a card (one rank, or every rank
+of a grid over nccl, Multigrid.uses_graphs): the inner restart and the
+cycle, each captured once into a CUDA graph (solvers/cuda_graph.
+GraphProgram) and replayed with no read of the device.  On a grid the
+sharded levels' face exchanges, all-reduces and gathers are captured
+inside as K8 (parallel/peer.py), the JAX package's sharded
+inner_restart_batch (its hierarchy.py:806-850).
 
 InnerRestartGraph is the port's counterpart of the JAX package's
 _inner_restart_impl / inner_restart_batch (ddalphaamg_tpu/mg/hierarchy.py:

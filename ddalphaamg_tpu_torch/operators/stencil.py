@@ -24,8 +24,10 @@ version only for tensors on the CPU.
 
 A stencil with a mesh (parallel/mesh.SolverMesh) is one rank's slab of a
 sharded level: geom is the slab's geometry, full_op and hop exchange faces
-with the neighbor ranks (parallel/shard_ops.py), the other operators stay
-local, and parities count global coordinates.
+with the neighbor ranks (parallel/shard_ops.py: the faces posted first,
+the kernel's interior work while they travel), allsum is the all-reduce
+(K8 on nccl, parallel/peer.py), the other operators stay local, and
+parities count global coordinates.
 
 The coarsest level's direct solve (MGConfig.coarsest_direct; the JAX
 package's stencil.py:599-727) lives here too: the operator, or its
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ..geometry import Geometry
-from ..parallel import comm, shard_ops
+from ..parallel import comm, shard_ops, soa_halo
 from ..parallel.mesh import shard_field
 from . import cuda_coarse, cuda_dense, cuda_dslash, fast
 from .coarse import CoarseOperator, compress
@@ -180,6 +182,8 @@ class WilsonStencilSoA(_SoALayout):
         cdiag_inv, coff_inv = (fast.compact_parity(t, geom.lattice, ODD, offset)
                                for t in cuda_dslash.pack_clover(clov_inv))
         even = fast.parity_mask(geom.lattice, EVEN, rdtype, links.device, offset)
+        if mesh is not None:        # the face corrections' tables, before any capture
+            soa_halo.face_tables(links.device, dtype)
         return cls(links=links,
                    links_intra=(links * intra[:, None, None]).contiguous(),
                    cdiag=cdiag.to(rdtype), coff=coff.to(dtype),

@@ -2,7 +2,10 @@
 halo_exchange_shift, ddalphaamg_tpu/parallel/halo.py:60-80; reference
 ghost_sendrecv, src/ghost_generic.c:171-345).  Only the one-site face
 crosses ranks; unsplit axes roll inside the slab.  The Galerkin build of a
-sharded coarse level reads its neighbor basis fields through it."""
+sharded coarse level reads its neighbor basis fields through it; each
+shift is comm.exchange, the post and the finish at once (nothing to
+overlap: the shifted field is all the build reads next): K8 on nccl
+(parallel/peer.py, one way only, as a ring's shift is), gloo else."""
 
 from __future__ import annotations
 

@@ -7,7 +7,9 @@
     process group over a file store in a private temporary directory.
 
 The transport is the caller's choice (parallel/comm.py): "nccl" needs one
-card per rank; "gloo" lets ranks share a card or run on the CPU.
+card per rank; "gloo" lets ranks share a card or run on the CPU.  On nccl
+the ranks open each other's K8 arenas here (warm_up, parallel/peer.py),
+before any CUDA graph is captured.
 """
 
 from __future__ import annotations
@@ -34,12 +36,24 @@ def _init(transport, device, init_method, rank, world) -> Comm:
         torch.cuda.set_device(device)
     elif transport == "nccl":
         raise ValueError("the nccl transport needs a CUDA device per rank")
-    # nccl: bind the rank's card now, so that the communicator exists before
-    # the first exchange, in which each rank meets only its neighbors
+    # nccl: bind the rank's card now, on which the K8 arenas' IPC handles
+    # are shared (parallel/peer.Peers)
     dist.init_process_group(transport, init_method=init_method, rank=rank,
                             world_size=world, timeout=TIMEOUT,
                             device_id=device if transport == "nccl" else None)
     return Comm(transport, device)
+
+
+def warm_up(mesh):
+    """On nccl: give the Comm its peers (parallel/peer.Peers: K8, which
+    carries every collective of the grid and which the captured loop
+    bodies hold), before any CUDA graph is captured.  Nothing on gloo."""
+    from .peer import Peers
+
+    c = mesh.comm
+    if c is None or c.transport != "nccl":
+        return
+    c.peers = Peers(mesh, c.device)
 
 
 def from_environment(dims, transport: str, device_type: str = "cuda"):
@@ -62,15 +76,22 @@ def from_environment(dims, transport: str, device_type: str = "cuda"):
     else:
         device = torch.device(device_type)
     comm = _init(transport, device, "env://", rank, world)
-    return make_solver_mesh(dims=dims, rank=rank, comm=comm), device
+    mesh = make_solver_mesh(dims=dims, rank=rank, comm=comm)
+    warm_up(mesh)
+    return mesh, device
 
 
 def _rank_main(rank, fn, dims, transport, devices, tmp, args):
     comm = _init(transport, devices[rank], f"file://{tmp}/store", rank,
                  math.prod(dims))
     try:
-        result = fn(make_solver_mesh(dims=dims, rank=rank, comm=comm),
-                    torch.device(devices[rank]), *args)
+        mesh = make_solver_mesh(dims=dims, rank=rank, comm=comm)
+        warm_up(mesh)
+        result = fn(mesh, torch.device(devices[rank]), *args)
+        if comm.peers is not None:      # every rank done with the arenas, then freed
+            torch.cuda.synchronize(comm.device)
+            dist.barrier()
+            comm.peers.close()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:

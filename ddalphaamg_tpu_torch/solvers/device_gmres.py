@@ -22,10 +22,10 @@ gcr_program hands its loops to a control object: HostControl decides them
 on the host, with one read of the device per iteration (lanes_go_on;
 device_gcr is gcr_program under it, the host loop), a CudaGraph captures
 them into one CUDA graph, one WHILE node a loop with a device-side
-iteration index (solvers/cuda_graph.py).  On a card with one rank the fine
-inner restart, the cycle and the coarsest solve run as such graphs
-(mg/programs.py, mg/coarsest.py), the K-cycle's and the coarsest GCR
-nested in them.
+iteration index (solvers/cuda_graph.py).  On a card the fine inner
+restart, the cycle and the coarsest solve run as such graphs
+(mg/programs.py, mg/coarsest.py; on a grid where Multigrid.uses_graphs
+says so), the K-cycle's and the coarsest GCR nested in them.
 
 The orthogonalization (the Krylov recurrence itself) runs in the field's own
 dtype; TF32 must be off for it (utils.pin_full_precision), because rounded
@@ -39,9 +39,11 @@ runs.
 
 On a sharded level every inner product and norm is a global sum over the
 ranks (allsum, the stencil's all-reduce), one all-reduce for the [B] or
-[B, j] numbers of all lanes.  The stop flag is computed from all-reduced
-numbers only, which every rank receives bit for bit, so all ranks take the
-same branches.
+[B, m] numbers of all lanes (the Gram-Schmidt over all m rows, those from
+j on weighted by zero, so that a device program with the collectives
+inside, K8's on nccl, gives the host loop's bits).  The stop flag is computed
+from all-reduced numbers only, which every rank receives bit for bit, so
+all ranks take the same branches, in a host loop and in a replay.
 """
 
 from __future__ import annotations
@@ -86,24 +88,28 @@ def _prec_out(prec, r):
     return out, None
 
 
-def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j: int, w: torch.Tensor,
+def orthonormalize(W: torch.Tensor, Q: torch.Tensor, j: torch.Tensor, w: torch.Tensor,
                    q: torch.Tensor, allsum: Callable):
-    """Classical Gram-Schmidt of each lane's w [B, n] against the first j
-    rows of its W [B, m, n] on a slab (allsum: the sum over the ranks),
+    """Classical Gram-Schmidt of each lane's w [B, n] against the rows of
+    its W [B, m, n] below j on a slab (allsum: the sum over the ranks),
     applied alike to q, then normalization by |w| (a zero w stays zero);
     the results are written to row j of W and Q and returned.  j is a
-    Python int: the products run over the j written rows, with one
-    all-reduce for h."""
-    if j:
-        h = allsum(W[:, :j].conj() @ w.unsqueeze(-1))          # [B, j, 1]: <W_i, w>
-        h = h.transpose(-1, -2)
-        w = w - (h @ W[:, :j]).squeeze(1)
-        q = q - (h @ Q[:, :j]).squeeze(1)
+    device int64 scalar (a graph loop's index, or the host loop's row from
+    a table): the products run over all m rows, those from j on weighted by
+    zero, so that a replay and the host loop give the same bits, with one
+    all-reduce of h [B, m]."""
+    keep = torch.arange(W.shape[1], device=W.device) < j
+    h = allsum((W.conj() @ w.unsqueeze(-1)).squeeze(-1))        # [B, m]: <W_i, w>
+    h = torch.where(keep, h, 0).unsqueeze(1)
+    w = w - (h @ W).squeeze(1)
+    q = q - (h @ Q).squeeze(1)
     wn = lane_norm(w, allsum)
     inv = wn.masked_fill(wn == 0, 1.0).reciprocal()[:, None]
-    torch.mul(w, inv, out=W[:, j])
-    torch.mul(q, inv, out=Q[:, j])
-    return W[:, j], Q[:, j]
+    w, q = w * inv, q * inv
+    row = j.reshape(1)
+    W.index_copy_(1, row, w.unsqueeze(1))
+    Q.index_copy_(1, row, q.unsqueeze(1))
+    return w, q
 
 
 class GCRLanes:
@@ -156,9 +162,9 @@ class GCRLanes:
         cuda_gcr.stop_test(self.rn, self.stop, self.active, self.go, self.r, self.rz)
 
     def _row(self, j):
-        """Row j as the step takes it: a device index on one rank (a host j
-        through a table made at the first host step), the int on a slab."""
-        if self.allsum is not None or isinstance(j, torch.Tensor):
+        """Row j as the step takes it: a device index (a host j through a
+        table made at the first host step)."""
+        if isinstance(j, torch.Tensor):
             return j
         if self._rows is None:
             self._rows = torch.arange(self.W.shape[1], device=self.W.device)
@@ -193,7 +199,7 @@ class GCRLanes:
             cuda_gcr.gcr_step(self.W, self.Q, self._row(j), w, q, self.x, self.r, self.rz,
                               self.go, self.stop, self.active, self.rn, self.iters, self.work)
             return
-        w, q = orthonormalize(self.W, self.Q, j, w, q, self.allsum)
+        w, q = orthonormalize(self.W, self.Q, self._row(j), w, q, self.allsum)
         cuda_gcr.update_step(w, q, self.x, self.r, self.rz, self.go, self.stop, self.active,
                              self.rn, self.iters, self.allsum)
 

@@ -1,11 +1,25 @@
 """Restarted flexible GMRES (FGMRES), right-preconditioned, driven from the
 host: the non-multigrid methods' outer solver and method 4's inner solver.
 
-Rebuild of the JAX package's solvers/fgmres.py (without its fused
-single-reduce variants), which rebuilds the reference's fgmres_PRECISION
-(src/linsolve_generic.c:219-413) and fgmres_MP (src/linsolve.c:153-314):
+Rebuild of the JAX package's solvers/fgmres.py, which rebuilds the
+reference's fgmres_PRECISION (src/linsolve_generic.c:219-413) and fgmres_MP
+(src/linsolve.c:153-314):
 
-  * classical Gram-Schmidt Arnoldi: h = V^H w, w <- w - V^T h;
+  * classical Gram-Schmidt Arnoldi: h = V^H w, w <- w - V^T h, in one of
+    the JAX package's three forms (`single_reduce`, its fgmres.py:65-106,
+    :227-250):
+      False         h, then the norm of the orthogonalized w: two
+                    all-reduces and two reads of the device a step;
+      "fused"       h, the update and the exact norm with the two
+                    all-reduces chained on the device and one read of
+                    [h, |w|^2] together (iterations as with False);
+      True / "pythagoras"  one all-reduce of [h, |w|^2] before the update
+                    (the reference's SINGLE_ALLREDUCE_ARNOLDI,
+                    src/linsolve_generic.c:668-738), the norm derived on
+                    the host as |w|^2 - sum |h_i|^2, recomputed exactly
+                    where that leaves at most 1e-4 |w|^2;
+    fgmres_mp takes "fused" and runs every other value as False, as the
+    JAX package's does;
   * Givens-rotation QR update of the Hessenberg matrix on the host in
     complex128 (qr_update_PRECISION, src/linsolve_generic.c:898-941);
   * convergence on |gamma_{j+1}| / ||r_0|| < tol, divergence at 1e5, happy
@@ -14,12 +28,13 @@ single-reduce variants), which rebuilds the reference's fgmres_PRECISION
 
 Vectors are tensors of any shape on any device (the port's dof-major
 fields [12, V]); the operator and the preconditioner map that shape to
-itself.  Each iteration reads the device twice (h and the norm): correct
-and slow, as a host-driven loop is.  With a mesh (parallel/mesh.SolverMesh)
-the vectors are this rank's slabs and every inner product is the global
-sum, one all-reduce each (parallel/comm.all_reduce_sum: the same bits on
-every rank, so all ranks take the same branches), as the JAX package's
-inner products on sharded arrays are global.
+itself.  Each iteration reads the device twice (h and the norm), or once
+with single_reduce: correct and slow, as a host-driven loop is.  With a
+mesh (parallel/mesh.SolverMesh) the vectors are this rank's slabs and
+every inner product is the global sum, one all-reduce each
+(parallel/comm.all_reduce_sum: the same bits on every rank, so all ranks
+take the same branches), as the JAX package's inner products on sharded
+arrays are global.
 
 h = V^H w is a product and a sum per basis vector (torch.linalg.vecdot),
 never a matrix product: a batched complex64 matrix product over n = 12 *
@@ -69,6 +84,49 @@ def _orthogonalize(V, j: int, w, mesh=None):
     return w - h @ V[:j + 1], h.cpu().numpy().astype(np.complex128)
 
 
+def _orthogonalize_fused(V, j: int, w, mesh=None):
+    """The step of _orthogonalize with the exact norm of the result: h,
+    the update and |w_orth|^2 queued on the device with their two
+    all-reduces, then one read of [h, |w_orth|^2]; returns (w_orth, h as
+    complex128 numpy, |w_orth|)."""
+    h = _allsum(torch.linalg.vecdot(V[:j + 1], w), mesh)
+    w = w - h @ V[:j + 1]
+    n2 = _allsum(torch.linalg.vecdot(w, w).real.reshape(1), mesh)
+    host = torch.cat([h, n2.to(h.dtype)]).cpu().numpy().astype(np.complex128)
+    return w, host[:-1], math.sqrt(max(host[-1].real, 0.0))
+
+
+def _orthogonalize_pythagoras(V, j: int, w, mesh=None):
+    """The step of _orthogonalize with one all-reduce of [h, |w|^2] taken
+    before the update and the norm of w_orth derived on the host from
+    |w|^2 - sum |h_i|^2, recomputed exactly (a second reduction) where
+    that leaves at most 1e-4 |w|^2 (the JAX package's guard); returns
+    (w_orth, h as complex128 numpy, |w_orth|)."""
+    hw = torch.cat([torch.linalg.vecdot(V[:j + 1], w),
+                    torch.linalg.vecdot(w, w).real.reshape(1).to(w.dtype)])
+    hw = _allsum(hw, mesh)
+    host = hw.cpu().numpy().astype(np.complex128)
+    h, wn2 = host[:-1], float(host[-1].real)
+    w = w - hw[:-1] @ V[:j + 1]
+    hn2 = wn2 - float(np.sum(np.abs(h) ** 2))
+    return w, h, math.sqrt(hn2) if hn2 > 1e-4 * wn2 else _norm(w, mesh)
+
+
+def _arnoldi_step(V, j: int, w, mesh, reorthogonalize: bool, single_reduce):
+    """(w_orth, h as complex128 numpy, |w_orth|) of one Arnoldi step in the
+    form single_reduce names (module note); reorthogonalization runs the
+    two-reduce step twice, as in the JAX package."""
+    if single_reduce == "fused" and not reorthogonalize:
+        return _orthogonalize_fused(V, j, w, mesh)
+    if single_reduce and not reorthogonalize:
+        return _orthogonalize_pythagoras(V, j, w, mesh)
+    w, h = _orthogonalize(V, j, w, mesh)
+    if reorthogonalize:
+        w, h2 = _orthogonalize(V, j, w, mesh)
+        h = h + h2
+    return w, h, _norm(w, mesh)
+
+
 def _givens(H, cs, sn, gamma, j: int):
     """Apply the earlier rotations to column j of H, then make and apply
     the rotation that zeroes H[j + 1, j] (qr_update_PRECISION)."""
@@ -99,7 +157,7 @@ def _back_substitute(H, gamma, j_used: int) -> np.ndarray:
 
 def _restart_cycle(op_flat: Callable, prec_flat: Optional[Callable], r, gamma0: float,
                    norm_r0: float, m: int, dtype, tol: float, reorthogonalize: bool,
-                   rotate_on_breakdown: bool, mesh=None):
+                   rotate_on_breakdown: bool, mesh=None, single_reduce=False):
     """One restart cycle: up to m Arnoldi steps from the residual r, with
     the basis V and the preconditioned basis Z in dtype, the Givens QR
     update of H on the host, and the correction by back substitution.  A
@@ -124,11 +182,7 @@ def _restart_cycle(op_flat: Callable, prec_flat: Optional[Callable], r, gamma0: 
             w = op_flat(Z[j])
         else:
             w = op_flat(V[j])
-        w, h = _orthogonalize(V, j, w.to(dtype), mesh)
-        if reorthogonalize:
-            w, h2 = _orthogonalize(V, j, w, mesh)
-            h = h + h2
-        hnorm = _norm(w, mesh)
+        w, h, hnorm = _arnoldi_step(V, j, w.to(dtype), mesh, reorthogonalize, single_reduce)
         H[:j + 1, j] = h
         H[j + 1, j] = hnorm
         if hnorm > 1e-15:
@@ -167,12 +221,12 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
            preconditioner: Optional[Callable] = None, tol: float = 1e-10,
            restart_length: int = 50, max_restarts: int = 20,
            reorthogonalize: bool = False, restest: bool = False,
-           mesh=None) -> FGMRESResult:
+           mesh=None, single_reduce=False) -> FGMRESResult:
     """Solve apply_op(x) = b to relative residual tol (relative to the
     first restart's residual ||b - A x0||), in b's dtype.  The
     preconditioner may run in another precision; its output is cast to b's
-    dtype, and the Krylov basis stays in b's dtype.  mesh: the module
-    note."""
+    dtype, and the Krylov basis stays in b's dtype.  mesh, single_reduce
+    (False, "fused", True or "pythagoras"): the module note."""
     shape = b.shape
     bf = b.reshape(-1)
     op_flat, prec_flat = _flat(apply_op, shape), _flat(preconditioner, shape)
@@ -194,7 +248,8 @@ def fgmres(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
             break
         dx, its, gamma_jp1, status, rv = _restart_cycle(
             op_flat, prec_flat, r, gamma0, norm_r0, restart_length, bf.dtype, tol,
-            reorthogonalize, rotate_on_breakdown=False, mesh=mesh)
+            reorthogonalize, rotate_on_breakdown=False, mesh=mesh,
+            single_reduce=single_reduce)
         total_iters += its
         resvec += rv
         x = x + dx
@@ -212,7 +267,7 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
               preconditioner: Optional[Callable] = None, tol: float = 1e-10,
               restart_length: int = 10, max_restarts: int = 100,
               inner_dtype=torch.complex64, outer_dtype=torch.complex128,
-              mesh=None) -> FGMRESResult:
+              mesh=None, single_reduce=False) -> FGMRESResult:
     """Mixed-precision restarted FGMRES (reference fgmres_MP): the true
     residual, the solution and the Givens recurrences in outer_dtype (the
     latter on the host), the Arnoldi basis V, Z, the inner operator applies
@@ -220,7 +275,8 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
     precision: it is called with outer_dtype vectors for the restart
     residual and inner_dtype vectors inside the Arnoldi loop.  A
     convergence seen by the inner estimate is verified by one more true
-    residual.  mesh: the module note."""
+    residual.  mesh, single_reduce (only "fused" differs from False, as in
+    the JAX package's fgmres_mp): the module note."""
     shape = b.shape
     bf = b.reshape(-1).to(outer_dtype)
     op_flat, prec_flat = _flat(apply_op, shape), _flat(preconditioner, shape)
@@ -243,7 +299,8 @@ def fgmres_mp(apply_op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = 
             break
         dx, its, _, status, rv = _restart_cycle(
             op_flat, prec_flat, r, gamma0, norm_r0, restart_length, inner_dtype, tol,
-            False, rotate_on_breakdown=True, mesh=mesh)
+            False, rotate_on_breakdown=True, mesh=mesh,
+            single_reduce="fused" if single_reduce == "fused" else False)
         total_iters += its
         resvec += rv
         x = x + dx.to(outer_dtype)

@@ -112,7 +112,7 @@ def test_cpu_tensors_take_the_plain_path():
                       None, one.clone(), torch.zeros(1, dtype=torch.long))
     assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
     assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6",
-                                    "K7", "G"}
+                                    "K7", "K8", "G"}
 
 
 def test_cuda_request_never_runs_on_cpu():

@@ -16,13 +16,15 @@ its plain version) and a stand-in replaces the CUDA capture:
       the host loop;
   (d) the Multigrid keeps one graph per (level, batch, dtype, view), reuses
       it, drops it after re_setup, shift_update, a setup and a new Solver
-      setup, and never uses one on a mesh or, unpatched, on the CPU.
+      setup, and never uses one on a level sharded over gloo or, unpatched,
+      on the CPU (a replicated level of a grid uses one).
 The CUDA capture itself is held to the host loop on a card in
 tests/test_torch_kernels.py (marked gpu).
 """
 
 import dataclasses
 import functools
+import types
 from collections import Counter
 
 import jax
@@ -260,10 +262,18 @@ def test_no_graph_on_the_cpu_or_on_a_mesh(stub_graphs, monkeypatch):
     mg._coarsest_solve(lvl, b)
     assert not lvl.graphs and stub_graphs.captures == 0     # GRAPH_DEVICES: cuda only
     monkeypatch.setattr(hierarchy, "GRAPH_DEVICES", ("cuda", "cpu"))
+    # a level sharded over gloo keeps its host loop (no capture holds a
+    # gloo collective) ...
+    gloo = types.SimpleNamespace(comm=types.SimpleNamespace(transport="gloo"))
+    monkeypatch.setattr(lvl.stencil, "mesh", gloo)
+    assert not mg.uses_graphs(b, lvl)
+    monkeypatch.setattr(lvl.stencil, "mesh", None)
+    # ... while the coarsest level, replicated on every rank of a grid,
+    # solves with no collective and runs its graph on any transport
     mg.cfg.mesh = object()
-    assert not mg.uses_graphs(b)
+    assert mg.uses_graphs(b, lvl)
     mg._coarsest_solve(lvl, b)
-    assert not lvl.graphs and stub_graphs.captures == 0
+    assert len(lvl.graphs) == 1 and stub_graphs.captures == 1
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["complex64", "bf16 view"])

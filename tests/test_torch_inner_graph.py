@@ -24,8 +24,8 @@ body recorded once, host reads refused, replayed on the host):
       and on;
   (e) re_setup, set_conf, shift_update and slim_for_solve drop the
       programs, a replaced stencil is caught by identity, one program of a
-      kind is kept, and no program is made on the CPU (unpatched) or on a
-      mesh.
+      kind is kept, and no program is made on the CPU (unpatched) or for a
+      level sharded over gloo.
 Sizes: 4^4 -> 2^4 (-> 1^4), d = 8, a few seconds a case.
 """
 
@@ -53,6 +53,7 @@ from ddalphaamg_tpu_torch.mg.hierarchy import MGConfig, Multigrid
 from ddalphaamg_tpu_torch.mg.programs import CycleGraph, InnerRestartGraph
 from ddalphaamg_tpu_torch.operators import cuda_coarse, cuda_dense, cuda_dslash, cuda_gcr, fast
 from ddalphaamg_tpu_torch.operators.wilson import WilsonOperator
+from ddalphaamg_tpu_torch.parallel import comm
 from ddalphaamg_tpu_torch.solvers.cuda_graph import GraphProgram
 from ddalphaamg_tpu_torch.solvers.device_gmres import HostControl, device_gcr, gcr_program
 
@@ -399,8 +400,14 @@ def test_slim_for_solve_drops_them_and_no_program_without_a_card_or_on_a_mesh(mo
     assert isinstance(mg.programs[("InnerRestartGraph", 1, 6, torch.complex64)],
                       InnerRestartGraph)
     mg.drop_graphs()
-    mg.cfg.mesh = types.SimpleNamespace(splits_yx=False)    # a grid: the host loops
-    assert not mg.uses_graphs(r)
-    mg.inner_restart(r, 1e-3, m=6)
-    mg(r)
     assert not mg.programs
+    # a grid: a fine level sharded over gloo keeps the host loops, over a
+    # transport whose collectives a capture holds (comm.CAPTURED_TRANSPORTS)
+    # it runs the programs; the replicated coarsest level runs its graph
+    # on either
+    fine = mg.fine.stencil
+    for transport in ("gloo", "nccl"):
+        monkeypatch.setattr(fine, "mesh", types.SimpleNamespace(
+            comm=types.SimpleNamespace(transport=transport)))
+        assert mg.uses_graphs(r) is (transport in comm.CAPTURED_TRANSPORTS)
+        assert mg.uses_graphs(r, mg._levels()[-1])
