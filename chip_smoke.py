@@ -104,9 +104,10 @@ Phases, one result line each (or a few), in order:
   4. solve    the single-rank main path: Solver on bench_assets/rough16.ini
               at full parameters (the configuration read by the native
               reader, native.py, or the phase fails; plaquette
-              1.7878261039088 to 1e-10; setup with its phases profiled,
-              profiling.PROF: the seconds of each by depth and what is
-              left outside them,
+              1.7878261039088 to 1e-10; setup with its phases traced
+              (profiling.PROF at level 2 for the setup and the first solve
+              alone, the rest of the run untraced): the device seconds of
+              each by depth and what is left outside them,
               solve of a right-hand side of ones, exact relative residual
               recomputed in complex128 from the returned x, < 1e-10 in <= 12
               outer iterations), with the launch count of each kernel in
@@ -115,7 +116,12 @@ Phases, one result line each (or a few), in order:
               each sweep one replay of a device program);
               then a second, warm solve of the same right-hand side, timed
               for phase 7; the graphs' captures (the setup's beside PR
-              13's), replays and pools, and the warm solve profiled twice
+              13's), replays and pools, the host's reads of the device and
+              the empty_cache calls the captures made (the tracer's
+              counters, of the setup and of the first solve: a read more
+              than the outer iterations ask, or a capture that had to empty
+              the allocator's cache, is a regression to look into), and the
+              warm solve profiled twice
               (torch.profiler: wall time, device busy time and its share of
               the profiled and of the unprofiled warm solve, device time by
               kernel, and the graph replays' device time from CUDA events
@@ -1577,23 +1583,34 @@ def graph_path(results):
 
 
 @contextlib.contextmanager
+def traced():
+    """The tracer (profiling.PROF) at level 2 for the block, its records
+    started afresh, and off after it (the rest of the run is the untraced
+    path); its records stay for traced_graphs."""
+    from ddalphaamg_tpu_torch import profiling
+
+    profiling.PROF.reset()
+    profiling.PROF.set_level(profiling.SPANS)
+    try:
+        yield
+    finally:
+        profiling.PROF.set_level(profiling.OFF)
+
+
+@contextlib.contextmanager
 def setup_profile():
-    """The profiler on (profiling.PROF, a synchronization at the end of every
-    region) for the block; yields the setup phases it recorded, {"depth d:
-    name": (seconds, count)}, filled at the block's end."""
+    """The block traced (traced); yields the setup phases it recorded,
+    {"depth d: name": (device seconds by CUDA events, count)}, filled at the
+    block's end."""
     from ddalphaamg_tpu_torch.profiling import PROF
 
     split = {}
-    PROF.reset()
-    PROF.enabled, PROF.sync = True, True
-    try:
+    with traced():
         yield split
-    finally:
-        PROF.enabled = False
-        split.update({f"depth {d}: {name}": (e.time, e.count)
-                      for (d, name), e in sorted(PROF.entries.items())
-                      if name.startswith("setup:")})
-        PROF.reset()
+    PROF.report()
+    split.update({f"depth {d}: {name}": (e.time, e.count)
+                  for (d, name), e in sorted(PROF.entries.items())
+                  if name.startswith("setup:")})
 
 
 def split_text(split, total_s):
@@ -1625,16 +1642,18 @@ def main_path():
     with setup_profile() as split:
         status = solver.setup()
     at_setup = kernels.counts()
-    phase("solve", t0, f"setup {status.setup_time:.3f} s (its phases profiled, a "
-          f"synchronization at the end of each), peak device memory "
+    phase("solve", t0, f"setup {status.setup_time:.3f} s (its phases traced, "
+          f"CUDA events), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase("solve", t0, "setup phases: " + split_text(split, status.setup_time))
     graph_stats("solve", t0, solver, " of the setup", "13 captures, 1.07-1.75 s")
     phase("solve", t0, "launches in the setup (a level's test-vector cycles as one "
           "batch) " + ", ".join(f"{k} {n}" for k, n in at_setup.items()))
     rhs = config.make_rhs("ones", solver.lattice)
-    x, info = solver.solve(rhs)
+    with traced():
+        x, info = solver.solve(rhs)
     counts = kernels.counts()
+    graph_stats("solve", t0, solver, " of the first solve")
     exact = exact_relres(solver, x, rhs)
     finite = bool(np.isfinite(x).all()) and x.shape == (*solver.lattice, 4, 3)
     phase("solve", t0, f"solve {info.solve_time:.3f} s, {info.iterations} outer "
@@ -1654,18 +1673,31 @@ def main_path():
           f"iterations")
     if warm.iterations != info.iterations:
         fail(f"the warm solve took {warm.iterations} iterations, the first {info.iterations}")
-    graph_stats("solve", t0, solver)
     before_after("solve", t0, "warm solve", lambda: solver.solve(rhs), warm.solve_time)
     return counts, info.iterations, warm.solve_time, solver
 
 
-def graph_stats(name, t0, solver, what="", before=None):
-    """The graphs of a solver's hierarchy so far (`what`): captures, their
-    seconds, replays and the pools of the graphs it holds; `before`: PR
-    13's numbers to print beside them."""
-    g = solver.mg.graph_stats
+def traced_graphs():
+    """The last traced block's counters (traced; profiling.PROF.report()):
+    captures, their seconds, replays, the pools' peak bytes, the host's
+    reads of the device and the captures' empty_cache calls."""
+    from ddalphaamg_tpu_torch.profiling import PROF
+
+    c = PROF.report()["counters"]
+    return {"captures": c.get("captures", 0), "capture_seconds": c.get("capture seconds", 0.0),
+            "replays": c.get("replays", 0), "peak_pool_bytes": c.get("peak pool bytes", 0),
+            "host_reads": c.get("host reads", 0), "empty_cache": c.get("empty_cache", 0)}
+
+
+def graph_stats(name, t0, solver, what, before=None):
+    """The graphs of the last traced block (`what`, traced_graphs):
+    captures, their seconds, replays, the host's reads of the device, the
+    captures' empty_cache calls, and the pools of the graphs the solver's
+    hierarchy holds; `before`: earlier numbers to print beside them."""
+    g = traced_graphs()
     phase(name, t0, f"graphs{what}: {g['captures']} captures "
-          f"({g['capture_seconds']:.3f} s), {g['replays']} replays; pools held "
+          f"({g['capture_seconds']:.3f} s, {g['empty_cache']} empty_cache calls), "
+          f"{g['replays']} replays, {g['host_reads']} host reads of the device; pools held "
           f"{solver.mg.graph_pool_bytes() / 2**20:.1f} MiB"
           + (f" (PR 13: {before}, H100 80GB HBM3 700 W)" if before else ""))
 
@@ -1773,13 +1805,13 @@ def setup_graph_path():
 
     def once(interp, loops):
         solver.p.interpolation = interp
-        with host_loops() if loops else contextlib.nullcontext():
+        with host_loops() if loops else contextlib.nullcontext(), traced():
             kernels.reset_counts()
             seconds = solver.setup().setup_time
             counts = kernels.counts()
         mg = solver.mg
         tvs = [lvl.test_vectors.clone() for lvl in mg._levels() if lvl.test_vectors is not None]
-        return seconds, tvs, counts, dict(mg.graph_stats)
+        return seconds, tvs, counts, traced_graphs()
 
     out = None
     for interp, label, order in ((2, "bootstrap", (True, False, False, True)),
@@ -1825,8 +1857,10 @@ def multi_path(name, solver, k6_ms=None):
     rhs = point_sources(solver.lattice)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    x, infos = solver.solve_multi(rhs)
+    with traced():
+        x, infos = solver.solve_multi(rhs)
     counts = kernels.counts()
+    graph_stats(name, t0, solver, " of the batch")
     batch = infos[0].solve_time * len(infos)
     exact = [exact_relres(solver, x[i], rhs[i]) for i in range(len(infos))]
     its = [i.iterations for i in infos]
@@ -1852,7 +1886,6 @@ def multi_path(name, solver, k6_ms=None):
                  f"{one.iterations} alone")
     phase(name, t0, f"batch of {len(infos)} {batch:.3f} s against {sum(singles) / 2:.3f} s "
           f"a single solve ({len(infos)} singles ~ {len(infos) * sum(singles) / 2:.3f} s)")
-    graph_stats(name, t0, solver)
     if k6_ms is not None:
         k6_ms[name] = k6_profiled(name, t0, "solve_multi", lambda: solver.solve_multi(rhs))
     else:
@@ -1887,8 +1920,10 @@ def direct_path(single_iterations, single_warm, k6_ms):
     status = solver.setup()
     phase(name, t0, f"options {', '.join(OPTIONS)} on; setup {status.setup_time:.3f} s")
     rhs = config.make_rhs("ones", solver.lattice)
-    x, info = solver.solve(rhs)
+    with traced():
+        x, info = solver.solve(rhs)
     counts = kernels.counts()
+    graph_stats(name, t0, solver, " of the first solve")
     for what, sec in solver.mg.build_times.items():
         phase(name, t0, f"{what}: built in {sec:.3f} s inside the first solve")
     exact = exact_relres(solver, x, rhs)
@@ -1919,7 +1954,6 @@ def direct_path(single_iterations, single_warm, k6_ms):
         if i.coarse_matvec_average != 0 or i.coarsest_inverse_applies == 0:
             fail(f"{name}: {lab} solve ran the coarsest GCR")
     check_counts(name, counts)
-    graph_stats(name, t0, solver)
     before_after(name, t0, "warm solve", lambda: solver.solve(rhs), info2.solve_time)
     k6_ms["direct, warm solve"] = k6_profiled(name, t0, "warm solve",
                                               lambda: solver.solve(rhs))
@@ -1943,7 +1977,9 @@ def defaults_path(single_iterations, single_warm, direct_warm):
     solver.read_conf()
     status = solver.setup()
     rhs = config.make_rhs("ones", solver.lattice)
-    x, info = solver.solve(rhs)
+    with traced():
+        x, info = solver.solve(rhs)
+    graph_stats(name, t0, solver, " of the first solve")
     x2, info2 = solver.solve(rhs)
     counts = kernels.counts()
     exact, exact2 = exact_relres(solver, x, rhs), exact_relres(solver, x2, rhs)
@@ -1973,7 +2009,6 @@ def defaults_path(single_iterations, single_warm, direct_warm):
             fail(f"{name}: a solve did not meet relres < 1e-10 in <= {limit} iterations "
                  f"(iterations {i.iterations}, exact relres {e:.3e})")
     check_counts(name, counts)
-    graph_stats(name, t0, solver)
     before_after(name, t0, "warm solve", lambda: solver.solve(rhs), info2.solve_time)
     inner_graph_path("inner-graph (defaults)", solver)
     return counts
@@ -2108,12 +2143,11 @@ def rough32_path(U, field_s):
                 status = solver.setup()
     finally:
         hierarchy.lane_chunk = lane_chunk
-    phase(name, t0, f"setup {status.setup_time:.3f} s (its phases profiled, a "
-          "synchronization at the end of each)")
+    phase(name, t0, f"setup {status.setup_time:.3f} s (its phases traced, CUDA events)")
     phase(name, t0, "setup phases: " + split_text(split, status.setup_time))
     graph_stats(name, t0, solver, " of the setup", "22 captures, 3.2-3.7 s")
     phase(name, t0, f"the setup's programs held pools of at most "
-          f"{solver.mg.graph_stats['peak_pool_bytes'] / GiB:.2f} GiB at once")
+          f"{traced_graphs()['peak_pool_bytes'] / GiB:.2f} GiB at once")
     mem("after the setup")
     for (n, lane, c), calls in sorted(chunks.items(), key=lambda kv: -kv[0][1]):
         phase(name, t0, f"setup chunk: {n} lanes of {lane / GiB:.3f} GiB -> {c} a chunk "
@@ -2123,8 +2157,9 @@ def rough32_path(U, field_s):
     mem("after slim_for_solve")
     torch.cuda.reset_peak_memory_stats()
     rhs = config.make_rhs("ones", solver.lattice)
-    with launch_shapes(shapes):
+    with launch_shapes(shapes), traced():
         x, info = solver.solve(rhs)
+    graph_stats(name, t0, solver, " of the cold solve")
     x2, info2 = solver.solve(rhs)
     counts = kernels.counts()
     exact, exact2 = exact_relres(solver, x, rhs), exact_relres(solver, x2, rhs)
@@ -2149,7 +2184,6 @@ def rough32_path(U, field_s):
             fail(f"{name}: a solve did not reach relres < 1e-10 in <= 16 iterations "
                  f"(iterations {i.iterations}, exact relres {e:.3e})")
     check_counts(name, counts)
-    graph_stats(name, t0, solver)
     # where a warm solve's device time goes, the coarse kernels by level
     lattices = []
     apply = cuda_coarse.coarse_apply
@@ -2190,9 +2224,8 @@ def held_sweep(name, t0, mg, tvs):
             t1 = time.perf_counter()
             x, coll = mg._setup_cycles_batch(mg.fine, tvs)
             torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t1, x, coll, kernels.counts(),
-                         dict(mg.graph_stats)))
-    (sg, xg, cg, got, g), (sh, xh, ch, host, _) = runs
+            runs.append((time.perf_counter() - t1, x, coll, kernels.counts()))
+    (sg, xg, cg, got), (sh, xh, ch, host) = runs
     off = {k: (got[k], host[k]) for k in host
            if k != "G" and abs(got[k] - host[k]) > 1e-3 * host[k]}
     equal = torch.equal(xg, xh) and cg.keys() == ch.keys() and all(
@@ -2556,10 +2589,12 @@ def sharded_rank(mesh, device, options=False, methods=()):
     torch.cuda.reset_peak_memory_stats(device)
     solver = api.Solver(rough16_params(options), device=device, mesh=mesh)
     plaq, _ = solver.read_conf()
-    status = solver.setup()
-    setup_graphs = dict(solver.mg.graph_stats)
+    with traced():                  # a rank's own tracer: the graphs' counters
+        status = solver.setup()
+    setup_graphs = traced_graphs()
     rhs = config.make_rhs("ones", solver.lattice)
-    x, info = solver.solve(rhs)
+    with traced():
+        x, info = solver.solve(rhs)
     out = dict(rank=mesh.rank, plaq=plaq, setup=status.setup_time,
                solve=info.solve_time, iterations=info.iterations,
                relres=info.relres, converged=info.converged,
@@ -2569,7 +2604,7 @@ def sharded_rank(mesh, device, options=False, methods=()):
                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                x_sum=complex(x.sum()), k5_axes=dict(k5_axes),
                sharded=[lvl.stencil.mesh is not None for lvl in solver.mg._levels()],
-               setup_graphs=setup_graphs, graphs=dict(solver.mg.graph_stats),
+               setup_graphs=setup_graphs, graphs=traced_graphs(),
                uses_graphs=[solver.mg.uses_graphs(torch.zeros(1, device=device), lvl)
                             for lvl in solver.mg._levels()])
     if mesh.rank == 0:    # exact residual from the gathered x, logical operator
@@ -2694,8 +2729,9 @@ def sharded_path(name, dims, transport, devices, single_iterations, options=Fals
     for r in res:
         g, c = r["graphs"], r["coarsest_check"]
         phase(name, t0, f"rank {r['rank']}: the replicated coarsest level's GCR as graph "
-              f"replays: {g['replays']} replays ({r['setup_graphs']['replays']} in the "
-              f"setup), {g['captures']} captures ({g['capture_seconds']:.3f} s); levels "
+              f"replays: {g['replays']} replays in the first solve "
+              f"({r['setup_graphs']['replays']} in the setup), {g['captures']} captures "
+              f"({g['capture_seconds']:.3f} s), {g['host_reads']} host reads of the device; levels "
               f"that run graphs {r['uses_graphs']}; warm solve with the replays "
               f"{r['warm']['replays'][0]:.3f} s, with host loops only (the port before) "
               f"{r['warm']['host loops'][0]:.3f} s; "
@@ -2704,7 +2740,7 @@ def sharded_path(name, dims, transport, devices, single_iterations, options=Fals
               f"host loop {c['host_ms']:.3f} ms")
     if not r0["coarsest_check"]["replicated"] or not r0["coarsest_check"]["equal"]:
         fail(f"{name}: rank 0's coarsest replay is not bit-equal to its host loop")
-    if any(r["graphs"]["replays"] == 0 for r in res):
+    if any(r["graphs"]["replays"] + r["setup_graphs"]["replays"] == 0 for r in res):
         fail(f"{name}: a rank ran its replicated coarsest level without a graph")
     if transport == "gloo" and any(r["uses_graphs"][0] for r in res):
         fail(f"{name}: a gloo-sharded level ran as a device program")

@@ -86,7 +86,7 @@ from .operators.wilson import WilsonOperator, shift_diagonal
 from .parallel import comm
 from .parallel.mesh import (check_blocks, gather_field, local_lattice, replicate,
                             shard_operator)
-from .profiling import FLOPS_FINE_FULL, PROF, solve_memory_mb
+from .profiling import FLOPS_FINE_FULL, PROF, site, solve_memory_mb, span
 from .smoothers import SchwarzPreconditioner
 from .solvers.fgmres import fgmres, fgmres_mp
 from .solvers.krylov import bicgstab, cgn
@@ -389,7 +389,14 @@ class Solver:
     def setup(self) -> SetupStatus:
         """Build the preconditioner (reference dd_alpha_amg_setup; the JAX
         package's api.py:262-316): the hierarchy and its setup for the
-        multigrid methods, else the method's own preconditioner."""
+        multigrid methods, else the method's own preconditioner.  With the
+        tracer on (profiling.PROF) the call is one request."""
+        if PROF.on:
+            with PROF.request("setup"):
+                return self._setup()
+        return self._setup()
+
+    def _setup(self) -> SetupStatus:
         if self.op is None:
             raise RuntimeError("call set_conf first")
         p = self.p
@@ -518,26 +525,29 @@ class Solver:
         """The global 2-norm of every lane of fine fields [*B, 12, V] (slabs
         [*B, 12, V_l] under a mesh), on the host: one read of the device."""
         f = v.reshape(-1, v.shape[-2] * v.shape[-1])
-        if self.mesh is None:
-            return torch.linalg.vector_norm(f, dim=1).cpu().numpy()
-        return np.sqrt(self.outer.allsum(torch.linalg.vecdot(f, f).real).cpu().numpy())
+        with span("read norms", kind="read"):
+            if self.mesh is None:
+                return torch.linalg.vector_norm(f, dim=1).cpu().numpy()
+            return np.sqrt(self.outer.allsum(torch.linalg.vecdot(f, f).real).cpu().numpy())
 
     def _scatter(self, a) -> torch.Tensor:
         """Global numpy fine fields [*B, T, Z, Y, X, 4, 3] -> this rank's
         dof-major slabs [*B, 12, V_l] in complex128 (rank 0's copy under a
         mesh)."""
-        b = fast.spinor_to_soa(torch.as_tensor(np.asarray(a, np.complex128),
-                                               device=self.device))
-        if self.mesh is None:
-            return b
-        return self.outer.slab(replicate(self.mesh, b))
+        with span("scatter"):
+            b = fast.spinor_to_soa(torch.as_tensor(np.asarray(a, np.complex128),
+                                                   device=self.device))
+            if self.mesh is None:
+                return b
+            return self.outer.slab(replicate(self.mesh, b))
 
     def _gather(self, x) -> np.ndarray:
         """Dof-major (slabs of) fields [*B, 12, V_l] -> global numpy
         [*B, T, Z, Y, X, 4, 3] on every rank."""
-        if self.mesh is not None:
-            x = gather_field(self.mesh, x, self.local_lattice)
-        return fast.spinor_from_soa(x, self.lattice).cpu().numpy()
+        with span("gather"):
+            if self.mesh is not None:
+                x = gather_field(self.mesh, x, self.local_lattice)
+            return fast.spinor_from_soa(x, self.lattice).cpu().numpy()
 
     # --- solves --------------------------------------------------------
 
@@ -576,7 +586,14 @@ class Solver:
         solve_time is the batch's wall time over B, the coarse averages are
         over the batch's iterations and coarsest_inverse_applies is the
         batch's over B.  The other methods solve the systems one after the
-        other.  Returns (x [B, T, Z, Y, X, 4, 3], [SolveInfo] * B)."""
+        other.  Returns (x [B, T, Z, Y, X, 4, 3], [SolveInfo] * B).  With
+        the tracer on (profiling.PROF) the call is one request."""
+        if PROF.on:
+            with PROF.request("solve_multi", rhs=len(rhs_batch)):
+                return self._solve_multi(rhs_batch, tol, x0)
+        return self._solve_multi(rhs_batch, tol, x0)
+
+    def _solve_multi(self, rhs_batch, tol, x0):
         if self.op is None:
             raise RuntimeError("call set_conf first")
         if (self.mg is None if self.multigrid
@@ -615,6 +632,8 @@ class Solver:
         the fine operator and the preconditioner (its api.py:914-932; the
         reference's PROF_PRECISION_START/STOP), the fine operator at
         FLOPS_FINE_FULL a site of each lane; fn itself with PROF off."""
+        if not PROF.on:
+            return fn
         vol = int(np.prod(self.lattice))
         per_call = ((lambda v: FLOPS_FINE_FULL * vol * (v.numel() // (12 * v.shape[-1])))
                     if fine_op else (lambda v: 0.0))
@@ -654,9 +673,9 @@ class Solver:
         resvec = []
         apply_fine = self._profiled(self.apply_operator, "fine_op (d_plus_clover)", True)
 
-        def wrap(fn, name="preconditioner (v-cycle)"):
-            # the inner restart times the cycle, or its one graph replay whole
-            return self._profiled(fn, name)
+        def wrap(fn):
+            # the host-driven inner restart times the cycle (a replay is a row itself)
+            return self._profiled(fn, "preconditioner (v-cycle)")
 
         # the inner GCR runs on the solve operator: the hierarchy's fine level,
         # unless that was built from another operator (a set_conf since the
@@ -668,26 +687,33 @@ class Solver:
         lag = int(np.prod(self.lattice)) <= CLIP_LAG_SITES
         prev = None
         for restart in range(p.max_restarts + 1):
-            r = b if (restart == 0 and x0 is None) else b - apply_fine(x)
-            nr = self._norms(r)
-            relres = nr / norm_b
-            resvec.append(relres)
-            last = restart == p.max_restarts
-            learned = (adapt_clip(clip, prev, relres, tol)
-                       if adaptive and prev is not None and not last else clip)
-            rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300),
-                                 clip if lag else learned)
-            clip, prev = learned, relres
-            active = relres >= tol
-            if not active.any() or last:
-                break
-            z, it = self.mg.inner_restart(
-                r.to(self._inner_dtype), torch.as_tensor(rel_tol, device=b.device),
-                m=m, active=torch.as_tensor(active, device=b.device),
-                wrap=wrap, op=gcr_op)
-            x = x + z.to(torch.complex128)
-            iters = iters + it
-        return x, iters.cpu().numpy().astype(int), relres, resvec, m, clip
+            with span("outer iteration"):
+                if restart == 0 and x0 is None:
+                    r = b
+                else:
+                    with span("residual"), site("outer residual", 0):
+                        r = b - apply_fine(x)
+                nr = self._norms(r)
+                relres = nr / norm_b
+                resvec.append(relres)
+                last = restart == p.max_restarts
+                learned = (adapt_clip(clip, prev, relres, tol)
+                           if adaptive and prev is not None and not last else clip)
+                rel_tol = np.maximum(tol * norm_b / np.maximum(nr, 1e-300),
+                                     clip if lag else learned)
+                clip, prev = learned, relres
+                active = relres >= tol
+                if not active.any() or last:
+                    break
+                z, it = self.mg.inner_restart(
+                    r.to(self._inner_dtype), torch.as_tensor(rel_tol, device=b.device),
+                    m=m, active=torch.as_tensor(active, device=b.device),
+                    wrap=wrap, op=gcr_op)
+                x = x + z.to(torch.complex128)
+                iters = iters + it
+        with span("read iterations", kind="read"):
+            iters = iters.cpu().numpy().astype(int)
+        return x, iters, relres, resvec, m, clip
 
     def _solve_krylov_multi(self, rhs_batch, tol, x0):
         """The methods without multigrid, one right-hand side after the

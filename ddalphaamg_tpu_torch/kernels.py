@@ -16,6 +16,12 @@ loops, or the body of the innermost loop being captured), and the graph's
 `GraphLaunches` turn its replays and its loops' device trip counters into
 launches when the counts are next read (`counts`, `reset_counts`), so that
 a replay adds no read of the device.
+
+With the tracer's device marks on (profiling.py, level 4) `tracer` is the
+profiler: `launched` then opens a mark before the launch and `check`, which
+every wrapper calls right after it, closes it, so each port kernel launch
+is bracketed by two one-thread marks (csrc/mark.cu); graph replays ("G")
+are not marked.  Below level 4 `tracer` is None and nothing more runs.
 """
 
 from __future__ import annotations
@@ -95,6 +101,7 @@ KERNELS = {
 
 
 _recording: list = []       # the launch counters of the graph segments being captured
+tracer = None               # the profiler whose device marks are on (module note)
 _graphs: list = []          # the GraphLaunches of graphs replayed since their last fold
 
 
@@ -105,6 +112,8 @@ def launched(key: str):
         _recording[-1][key] += 1
     else:
         KERNELS[key].launches += 1
+    if tracer is not None and key != "G":
+        tracer.kernel_begin(key)
 
 
 @contextlib.contextmanager
@@ -205,6 +214,7 @@ _SIGNATURES = {
     "ddaamg_graph_end": [_P, _P],
     "ddaamg_graph_launch": [_P, _P],
     "ddaamg_graph_destroy": [_P, _P],
+    "ddaamg_mark": [_P, _I, _I, _P],
 }
 
 _RESTYPES = {"ddaamg_gcr_work_bytes": ctypes.c_longlong}   # the rest return an int
@@ -277,6 +287,8 @@ def lib():
 
 
 def check(rc: int, what: str):
+    if tracer is not None:
+        tracer.kernel_end()
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 

@@ -59,12 +59,12 @@ def coarsest_gcr(s, b, m: int, tol: float, n_restarts: int, odd_even: bool,
 
 class CoarsestGraph(GraphProgram):
     """coarsest_gcr for B lanes on stencil s as one CUDA graph (module
-    note); capture is the graph class (CudaGraph; tests give a stand-in).
-    Calling it replays the graph."""
+    note) at multigrid depth `depth`; capture is the graph class
+    (CudaGraph; tests give a stand-in).  Calling it replays the graph."""
 
     def __init__(self, s, B: int, m: int, tol: float, n_restarts: int, odd_even: bool,
-                 capture=CudaGraph):
-        self.stencil = s
+                 capture=CudaGraph, depth: int = 0):
+        self.stencil, self.depth = s, depth
 
         def program(ctl, b):
             x, counters = coarsest_gcr(s, b, m, tol, n_restarts, odd_even,

@@ -104,12 +104,18 @@ collective, so on any grid its coarsest GCR is a replay of its own graph,
 which every rank replays on the same gathered bits (the JAX package's
 replicated coarse levels, its hierarchy.py:223-232).
 
-Profiling: with profiling.PROF on, the setup's phases are regions by the
+Tracing (profiling.PROF): from level 2 the setup's phases are rows by the
 JAX package's names and depths (_prof: the coarsest dense inverse, the
 initial test-vector smoothing, the block inverses, and per bootstrap
 iteration the Gram-Schmidt, the test-vector cycles and the P / Galerkin
-rebuild), each ended by a synchronization of the card; with it off they
-run as they are.  No region is inside a captured body.
+rebuild), each timed by CUDA events with no synchronization; every host
+read of the cycles' counters is a span, every capture counted with the
+pools' peak bytes.  At level 4 the cycle's call sites are marked sections
+(site: the residual, the restriction, the coarsest solve or the K-cycle
+GCR, the interpolation and add, the smoother, by depth), captured into the
+programs; a program or graph captured at another level is captured again
+(one of a kind, the old one dropped first).  Off, they run as they are.
+No phase is inside a captured body.
 """
 
 from __future__ import annotations
@@ -132,7 +138,7 @@ from ..operators.stencil import (CoarseStencilSoA, WilsonStencilSoA, dense_inver
 from ..operators.wilson import WilsonOperator
 from ..parallel import comm
 from ..parallel.mesh import check_blocks, gather_field, local_lattice, shard_field
-from ..profiling import PROF
+from ..profiling import PROF, site, span
 from ..smoothers.sap import (SchwarzPreconditioner, build_block_inverse, sap_smooth,
                              sap_smooth_from)
 from ..solvers.cuda_graph import CudaGraph
@@ -241,12 +247,11 @@ def _normalize(v, s):
 
 
 def _prof(name: str, depth: int, fn, device):
-    """fn() as the profiling region `name` at `depth` (the JAX package's
-    setup phases, its hierarchy.py:166-178; the reference profiles its setup
-    too, prof_print src/solver_analysis.c:65), the card synchronized at its
-    end with PROF.sync; fn() itself while PROF is off.  Never inside a
-    captured body: the synchronization is a host wait."""
-    if not PROF.enabled:
+    """fn() as the tracer's row `name` at `depth` (the JAX package's setup
+    phases, its hierarchy.py:166-178; the reference profiles its setup too,
+    prof_print src/solver_analysis.c:65), timed by CUDA events on the card;
+    fn() itself while PROF is off."""
+    if not PROF.on:
         return fn()
     with PROF.region(name, depth, device=device):
         return fn()
@@ -313,8 +318,6 @@ class Multigrid:
         self.stats = {"coarse_iterations": 0.0, "coarse_matvecs": 0.0,
                       "coarsest_inverse_applies": 0.0}
         self.build_times: dict[str, float] = {}     # seconds of each inverse build
-        self.graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
-                            "peak_pool_bytes": 0}
         # the device programs (mg/programs.py) by (kind, batch, GCR length, dtype)
         self.programs: dict = {}
         self._defer_dense = False
@@ -574,7 +577,6 @@ class Multigrid:
         if ctl is not None:
             return coarsest_gcr(s, b, *args, gcr=functools.partial(gcr_program, ctl))
         if self.uses_graphs(b, level):
-            self.graph_stats["replays"] += 1
             return self._coarsest_graph(level, s, b.shape[0])(b)
         return coarsest_gcr(s, b, *args)
 
@@ -593,12 +595,13 @@ class Multigrid:
     def _coarsest_graph(self, level: MGLevel, s, B: int) -> CoarsestGraph:
         """The level's graph of the coarsest GCR for B lanes on stencil s
         (its cycle view), captured at first use; a level whose stencil is
-        not the one its graphs were captured from drops them first, and a
-        setup keeps one graph at a time."""
+        not the one its graphs were captured from, or whose graphs hold
+        other marks than the tracer's level asks for, drops them first, and
+        a setup keeps one graph at a time."""
         cfg = self.cfg
         key = (B, s.dtype, s.Pk.dtype)
         g = level.graphs.get(key)
-        if any(h.stencil is not s for h in level.graphs.values()):
+        if any(h.stencil is not s or h.marked != PROF.marks for h in level.graphs.values()):
             self.drop_graphs([level])
             g = None
         if g is None:
@@ -606,38 +609,38 @@ class Multigrid:
                 self.drop_graphs([level])
             g = level.graphs[key] = CoarsestGraph(
                 s, B, cfg.coarse_iter, cfg.coarse_tol, cfg.coarse_restart,
-                self._odd_even(level), capture=GRAPH_CAPTURE)
-            self._captured(g)
+                self._odd_even(level), capture=GRAPH_CAPTURE, depth=level.depth)
+            self._captured()
         return g
 
-    def _captured(self, g):
-        st = self.graph_stats
-        st["captures"] += 1
-        st["capture_seconds"] += g.graph.capture_seconds
-        st["peak_pool_bytes"] = max(st["peak_pool_bytes"], self.graph_pool_bytes())
+    def _captured(self):
+        """After a capture: the tracer's peak of the pools held."""
+        if PROF.on:
+            c = PROF.counters
+            c["peak pool bytes"] = max(c["peak pool bytes"], self.graph_pool_bytes())
 
     def _program(self, cls, B: int, dtype, m: int = 0, op=None):
         """The device program cls (mg/programs.py) for B lanes, captured at
         first use; one of a kind is kept (of a kind and depth m for the
-        setup's programs, cls.per_depth; another batch, GCR length, dtype or
-        fine operator op replaces it), and every program is dropped first
-        where a level's stencil, interpolation, inverse or smoother it read
-        was replaced (holds, by identity)."""
+        setup's programs, cls.per_depth; another batch, GCR length, dtype,
+        fine operator op, or marks other than the tracer's level asks for
+        replace it), and every program is dropped first where a level's
+        stencil, interpolation, inverse or smoother it read was replaced
+        (holds, by identity)."""
         holds = self._program_holds()
         if any(len(g.holds) != len(holds) or any(a is not b for a, b in zip(g.holds, holds))
                for g in self.programs.values()):
             self.drop_programs()
         key = (cls.__name__, B, m, dtype)
         g = self.programs.get(key)
-        if g is None or g.op is not op:
+        if g is None or g.op is not op or g.marked != PROF.marks:
             # one program of a kind: its pool holds the bases (GBs at 32^4)
             for k in [k for k in self.programs
                       if k[0] == key[0] and (not cls.per_depth or k[2] == m)]:
                 self.programs.pop(k).close()
             g = self.programs[key] = cls(self, B, dtype, m=m, op=op, holds=holds,
                                          capture=GRAPH_CAPTURE)
-            self._captured(g)
-        self.graph_stats["replays"] += 1
+            self._captured()
         return g
 
     def _program_holds(self) -> tuple:
@@ -757,30 +760,40 @@ class Multigrid:
         counters = torch.zeros((eta.shape[0], 3), dtype=COUNTER_DTYPE, device=eta.device)
         x = None
         for _ in range(level.cfg.n_cy):
-            r = eta if x is None else eta - s.full_op(x)
-            b_c = self._restrict(level, r)
+            if x is None:
+                r = eta
+            else:
+                with site("residual", depth):
+                    r = eta - s.full_op(x)
+            with site("restrict", depth):
+                b_c = self._restrict(level, r)
             if nxt.is_coarsest:
-                x_c, it = self._coarsest_solve(nxt, b_c, ctl)
+                with site("coarsest", depth + 1):
+                    x_c, it = self._coarsest_solve(nxt, b_c, ctl)
             elif cfg.kcycle:
                 def kprec(v, _d=depth + 1):
                     return self._cycle(_d, v, kcycle_tol, ctl=ctl)
 
                 ns = self._cycle_view(nxt)
-                x_c, _, _, it = gcr_program(
-                    ctl or HOST, ns.full_op, b_c, cfg.kcycle_length, kcycle_tol,
-                    n_restarts=cfg.kcycle_restarts, prec=kprec, allsum=ns.allsum, n_aux=3)
+                with site("kcycle", depth + 1):
+                    x_c, _, _, it = gcr_program(
+                        ctl or HOST, ns.full_op, b_c, cfg.kcycle_length, kcycle_tol,
+                        n_restarts=cfg.kcycle_restarts, prec=kprec, allsum=ns.allsum,
+                        n_aux=3)
             else:
                 x_c, it = self._cycle(depth + 1, b_c, kcycle_tol, collect=collect, ctl=ctl)
             counters = counters + it
             if collect is not None:
                 collect[depth + 1] = x_c
-            corr = self._interpolate(level, x_c)
-            x = corr if x is None else x + corr
-            x = sap_smooth_from(s, level.smoother.colors, eta, x,
-                                cycles=level.cfg.post_smooth_iter,
-                                block_iter=level.cfg.block_iter,
-                                odd_even=(depth == 0 and cfg.odd_even),
-                                block_inv=level.block_inv, blocks=level.smoother.blocks)
+            with site("interpolate", depth):
+                corr = self._interpolate(level, x_c)
+                x = corr if x is None else x + corr
+            with site("smoother", depth):
+                x = sap_smooth_from(s, level.smoother.colors, eta, x,
+                                    cycles=level.cfg.post_smooth_iter,
+                                    block_iter=level.cfg.block_iter,
+                                    odd_even=(depth == 0 and cfg.odd_even),
+                                    block_inv=level.block_inv, blocks=level.smoother.blocks)
         return x, counters
 
     def _kcycle_tol(self, depth: int, tol: float) -> float:
@@ -807,8 +820,10 @@ class Multigrid:
     def _count(self, counters):
         """Add the [B, 3] counters of a cycle or an inner restart to stats
         (one read of the device)."""
+        with span("read counters", kind="read"):
+            sums = counters.sum(dim=0).tolist()
         for key, c in zip(("coarse_iterations", "coarse_matvecs",
-                           "coarsest_inverse_applies"), counters.sum(dim=0).tolist()):
+                           "coarsest_inverse_applies"), sums):
             self.stats[key] += c
 
     def inner_program(self, ctl, r, rel_tol, m: int, active=None, op=None, wrap=None):
@@ -832,7 +847,8 @@ class Multigrid:
 
         z, iters, _, counters = gcr_program(
             ctl, op or s.full_op, r, m, rel_tol, n_restarts=1,
-            prec=prec if wrap is None else wrap(prec), allsum=s.allsum, active=active, n_aux=3)
+            prec=prec if wrap is None else wrap(prec), allsum=s.allsum, active=active, n_aux=3,
+            site="fine GCR")
         return z, iters, counters
 
     def inner_restart(self, r, rel_tol, m: int, active=None, wrap=None, op=None):
@@ -840,10 +856,10 @@ class Multigrid:
         of r [B, 12, V] (inner_program): one replay of its graph on a card
         with one rank (InnerRestartGraph), else driven from the host.  op
         is the fine operator of the GCR (the fine level's by default);
-        wrap(fn, name), if given, times fn (the profiler): driven from the
-        host the GCR calls wrap(prec) in place of the cycle prec, a replay
-        is timed whole as one item named for the inner restart.  Returns
-        (z, iterations [B]), both on the device."""
+        wrap(fn), if given, times fn (the profiler): driven from the host
+        the GCR calls wrap(prec) in place of the cycle prec; a replay is
+        the tracer's row of the inner restart (InnerRestartGraph.row).
+        Returns (z, iterations [B]), both on the device."""
         self._ensure_inverses()
         r = r.to(self.fine.stencil.dtype)
         if self.uses_graphs(r):
@@ -851,13 +867,7 @@ class Multigrid:
             g = self._program(InnerRestartGraph, r.shape[0], r.dtype, m=m,
                               op=getattr(op, "__self__", op))
 
-            def replay(v):
-                return g(r=v, rel_tol=rel_tol, active=True if active is None else active)
-
-            if wrap is not None:
-                replay = wrap(replay, "inner restart (one CUDA graph replay: fine GCR and "
-                                      "cycles)")
-            out = replay(r)
+            out = g(r=r, rel_tol=rel_tol, active=True if active is None else active)
             z, iters, counters = out["z"], out["iters"], out["counters"]
         else:
             z, iters, counters = self.inner_program(HOST, r, rel_tol, m, active, op, wrap)

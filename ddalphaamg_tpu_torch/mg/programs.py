@@ -57,6 +57,8 @@ class InnerRestartGraph(GraphProgram):
     graph (module note).  Calling it with r, rel_tol ([B] or a float) and
     active ([B] or a bool) replays it and returns {z, iters, counters}."""
 
+    row = "inner restart (one CUDA graph replay: fine GCR and cycles)"
+
     def __init__(self, mg, B: int, dtype, m: int, op=None, holds=(), capture=CudaGraph):
         s = mg.fine.stencil
         self.holds, self.op = holds, op
@@ -104,7 +106,7 @@ class SetupCycleGraph(GraphProgram):
     def __init__(self, mg, B: int, dtype, m: int = 0, op=None, holds=(), capture=CudaGraph):
         level = mg._levels()[m]
         s = level.stencil
-        self.holds, self.op = holds, op
+        self.holds, self.op, self.depth = holds, op, m
         ktol = mg._kcycle_tol(m, mg.cfg.coarse_tol)
         inputs = {"tvs": torch.zeros((B, *s.field_shape), dtype=dtype, device=s.device)}
 
@@ -133,7 +135,7 @@ class TwoLevelUpdateGraph(GraphProgram):
     def __init__(self, mg, B: int, dtype, m: int = 0, op=None, holds=(), capture=CudaGraph):
         level = mg._levels()[m]
         s = level.stencil
-        self.holds, self.op = holds, op
+        self.holds, self.op, self.depth = holds, op, m
         inputs = {"tvs": torch.zeros((B, *s.field_shape), dtype=dtype, device=s.device)}
 
         def program(ctl, tvs):

@@ -32,6 +32,7 @@ from collections import Counter
 import torch
 
 from .. import kernels
+from ..profiling import NULL, PROF, span
 
 _capture_streams: dict = {}     # one capture stream per device
 MAX_LOOPS = 64                  # loops of one graph (trip counters)
@@ -68,6 +69,8 @@ class CudaGraph:
         t0 = time.perf_counter()
         if need and torch.cuda.mem_get_info(self.device)[0] < need:
             torch.cuda.empty_cache()
+            if PROF.on:
+                PROF.counters["empty_cache"] += 1
         reserved = torch.cuda.memory_reserved(self.device)
         with self._capturing(), kernels.recording(self.call):
             fn(self)
@@ -171,15 +174,24 @@ class GraphProgram:
     replays the graph once and returns clones of the outputs.  need: the
     pool's bytes, an estimate (CudaGraph.capture).  The graph's launches
     are accounted from its recording and its loops' trips
-    (kernels.GraphLaunches), so the counts equal the host loop's."""
+    (kernels.GraphLaunches), so the counts equal the host loop's.  With
+    the tracer on (profiling.PROF) the capture and every replay are spans
+    of the program's class at its multigrid depth, a replay timed by CUDA
+    events around the graph's launch (and the row `row` of the tracer's
+    table(), where the class names one); `marked`: the capture holds the
+    tracer's device marks (level 4)."""
 
     per_depth = False       # a Multigrid keeps one program of a kind (True: of a depth)
+    depth = 0               # the multigrid depth the program starts at
+    row = ""                # the row of the tracer's table() its replays are, if any
 
     def __init__(self, program, inputs: dict, device, need: int = 0, capture=CudaGraph):
         self.inputs = inputs
         self.graph = capture(device)
+        self.marked = PROF.marks
         out = self._out = {}
-        self.graph.capture(lambda ctl: out.update(program(ctl, **inputs)), need=need)
+        with span(f"capture {type(self).__name__}", self.depth, "capture"):
+            self.graph.capture(lambda ctl: out.update(program(ctl, **inputs)), need=need)
         self.graph.trips.zero_()        # a capture runs nothing; a stand-in may have
         self.launches = kernels.GraphLaunches(self, self.graph.call, self.graph.loops,
                                               self.graph.trips)
@@ -190,7 +202,9 @@ class GraphProgram:
                 self.inputs[name].copy_(v)
             else:
                 self.inputs[name].fill_(v)
-        self.graph.launch()
+        with (PROF.span(f"replay {type(self).__name__}", self.depth, "replay", self.graph.device,
+                        row=self.row) if PROF.on else NULL):
+            self.graph.launch()
         self.launches.replayed()
         return {name: v.clone() for name, v in self._out.items()}
 

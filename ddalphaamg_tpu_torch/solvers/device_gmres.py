@@ -48,12 +48,15 @@ all ranks take the same branches, in a host loop and in a replay.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from ..operators import cuda_gcr
 from ..operators.cuda_gcr import lane_norm
+from ..profiling import site as marked_site
 
 COUNTER_DTYPE = torch.float64   # the cycles' [B, 3] coarse-work counters
 
@@ -177,17 +180,23 @@ class GCRLanes:
         self.rn.copy_(lane_norm(self.r, self.allsum))
         self._stop_test()
 
-    def step(self, j, apply_op: Callable, prec: Optional[Callable] = None):
+    def step(self, j, apply_op: Callable, prec: Optional[Callable] = None,
+             section=contextlib.nullcontext):
         """Iteration j (a Python int, or a device int64 scalar in a graph's
         loop) of a restart for the lanes that go: on one rank the operator
         apply, then K7 (the rest of the iteration, operators/cuda_gcr.py),
-        on a slab the same in torch with all-reduced products."""
-        B = self.B
+        on a slab the same in torch with all-reduced products; what follows
+        the preconditioner inside section()."""
         # a frozen lane enters as zeros (rz): its alpha is 0, so its x and r
         # keep their bits, and a nested solve freezes it at once (one lane
         # iterates only while it goes)
         r_in = self.r if self.rz is None else self.rz
         q, aux = _prec_out(prec, r_in.reshape(self.shape))
+        with section():
+            self._update(j, apply_op, q, aux)
+
+    def _update(self, j, apply_op: Callable, q, aux):
+        B = self.B
         if aux is not None:             # with this iteration's go, before the step
             aux = aux if self.rz is None else torch.where(self.go[:, None], aux, self._no_aux)
             if self.aux_sum is None:        # the host loop: sized by the first aux
@@ -235,7 +244,8 @@ def device_gcr(apply_op: Callable, b: torch.Tensor, m: int, tol,
 def gcr_program(ctl, apply_op: Callable, b: torch.Tensor, m: int, tol,
                 n_restarts: int = 1, prec: Optional[Callable] = None,
                 x0: Optional[torch.Tensor] = None, allsum: Optional[Callable] = None,
-                active: Optional[torch.Tensor] = None, n_aux: int = 0):
+                active: Optional[torch.Tensor] = None, n_aux: int = 0,
+                site: Optional[str] = None):
     """Restarted flexible GCR with its control flow given to ctl
     (HostControl, or a CudaGraph being captured): the restarts a loop of
     n_restarts passes, each restart's iterations a loop that runs while
@@ -245,14 +255,18 @@ def gcr_program(ctl, apply_op: Callable, b: torch.Tensor, m: int, tol,
     whose sum then starts as zeros before any iteration (0: sized by the
     first aux, None if no iteration runs; the host loop only).  The fine
     inner restart, the K-cycle's and the coarsest GCR are this one
-    program."""
+    program.  site: the name of the marked section (profiling.site, at
+    depth 0) of the GCR's own work, each restart's residual and each
+    step's after the preconditioner."""
     st = GCRLanes(b, m, tol, x0, allsum, active, n_aux)
+    section = functools.partial(marked_site, site, 0) if site else contextlib.nullcontext
 
     def iteration(j):
-        st.step(j, apply_op, prec)
+        st.step(j, apply_op, prec, section)
 
     def restart(_):
-        st.restart(apply_op)
+        with section():
+            st.restart(apply_op)
         ctl.loop(m, lambda: st.go, iteration)
 
     ctl.loop(n_restarts, None, restart)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_graph_stub import traced  # noqa: F401 (a fixture)
+
 from ddalphaamg_tpu_torch import api, config, kernels
 from ddalphaamg_tpu_torch.geometry import Geometry
 from ddalphaamg_tpu_torch.mg.coarsest import CoarsestGraph, coarsest_gcr
@@ -548,7 +550,7 @@ def test_coarsest_graph_matches_the_host_loop(cuda, lat, batch, bf16, m):
 
 
 @pytest.mark.gpu
-def test_coarsest_graphs_follow_the_hierarchy(cuda):
+def test_coarsest_graphs_follow_the_hierarchy(cuda, traced):
     """A solve with the options off runs each inner restart as one program
     (its coarsest GCR nested in it, no coarsest graph of its own); after
     shift_update the programs are gone, the next coarsest replay uses the
@@ -561,7 +563,7 @@ def test_coarsest_graphs_follow_the_hierarchy(cuda):
     s.setup()
     mg = s.mg
     lvl = mg._levels()[-1]
-    assert not lvl.graphs and not mg.programs and mg.graph_stats["captures"] > 0
+    assert not lvl.graphs and not mg.programs and traced.counters["captures"] > 0
     rhs = config.make_rhs("ones", s.lattice)
     x, info = s.solve(rhs)
     assert info.converged and not lvl.graphs

@@ -327,8 +327,8 @@ PHASES = {"setup: coarsest dense inverse", "setup: initial tv smoothing",
 def profilers(monkeypatch):
     for prof in (profiling.PROF, jprofiling.PROF):
         monkeypatch.setattr(prof, "enabled", True)
-        monkeypatch.setattr(prof, "sync", True)
         prof.reset()
+    monkeypatch.setattr(jprofiling.PROF, "sync", True)
     yield profiling.PROF, jprofiling.PROF
     for prof in (profiling.PROF, jprofiling.PROF):
         prof.reset()

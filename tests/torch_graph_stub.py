@@ -3,14 +3,16 @@
 records a program as CudaGraph does (every loop body once, its launches
 into the graph's segments) and replays it with its control flow on the host
 (TrackingHost), counting each loop's passes into the graph's trip counters,
-its own launches not counted (the graph's accounting counts them)."""
+its own launches not counted (the graph's accounting counts them).  The
+fixture `traced` turns the port's tracer on for a test."""
 
 import contextlib
 from collections import Counter
 
+import pytest
 import torch
 
-from ddalphaamg_tpu_torch import kernels
+from ddalphaamg_tpu_torch import kernels, profiling
 from ddalphaamg_tpu_torch.solvers.cuda_graph import CudaGraph
 from ddalphaamg_tpu_torch.solvers.device_gmres import HostControl
 
@@ -90,3 +92,14 @@ class StubGraph(CudaGraph):
 
     def close(self):
         self.fn = None
+
+
+@pytest.fixture
+def traced():
+    """The port's tracer (profiling.PROF) at level 2, emptied, for the
+    test; off and emptied after it."""
+    profiling.PROF.reset()
+    profiling.PROF.set_level(profiling.SPANS)
+    yield profiling.PROF
+    profiling.PROF.set_level(profiling.OFF)
+    profiling.PROF.reset()

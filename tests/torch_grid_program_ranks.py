@@ -29,6 +29,7 @@ from ddalphaamg_tpu_torch.parallel import comm, shard_ops, soa_halo
 from ddalphaamg_tpu_torch.parallel.comm import exchange, exchange_faces, exchange_start, face
 from ddalphaamg_tpu_torch.parallel.mesh import (active_axes, gather_field, local_lattice,
                                                 shard_field)
+from ddalphaamg_tpu_torch.profiling import OFF, PROF, SPANS
 from ddalphaamg_tpu_torch.solvers.fgmres import fgmres, fgmres_mp
 from torch_parallel_ranks import _coarse_slab, level_configs
 
@@ -127,16 +128,20 @@ def replicated_coarsest(mesh, lattices, blocks, n_tv, U, tvs, b, eta, r, m):
     etas = shard_field(mesh, convert.fields(eta).to(torch.complex64), lattices[0])
     rs = shard_field(mesh, convert.fields(r).to(torch.complex64), lattices[0])
     replays = []
+    PROF.reset()
+    PROF.set_level(SPANS)           # its counters count the replays
     with programs(False) as stub:
         x_g, c_g = mg._coarsest_solve(lvl, bt)
-        replays.append(mg.graph_stats["replays"])
+        replays.append(PROF.counters["replays"])
         cyc_g = mg(etas)
-        replays.append(mg.graph_stats["replays"])
+        replays.append(PROF.counters["replays"])
         z_g, it_g = mg.inner_restart(rs, 1e-3, m=m)
-        replays.append(mg.graph_stats["replays"])
+        replays.append(PROF.counters["replays"])
         used = (mg.uses_graphs(bt, lvl), mg.uses_graphs(etas))
         captures = stub.captures
         programs_made = len(mg.programs)
+    PROF.set_level(OFF)
+    PROF.reset()
     mg.drop_graphs()
     with host_loops():
         x_h, c_h = mg._coarsest_solve(lvl, bt)
