@@ -49,7 +49,11 @@ Phases, one result line each (or a few), in order:
               error against 1e-5 (f32) / 1e-13 (f64) and the kernel and
               plain times from CUDA events after warm-up.  K4-bf16 and
               K5-bf16 run the same cases on the same blocks rounded to
-              bf16 (tolerance 1e-5: f32 sums in another order), K6 the
+              bf16 (tolerance 1e-5: f32 sums in another order); K4-schur
+              (the coarsest Schur complement on parity-split blocks) at
+              8^4 and 4^4, d = 56, bf16 and f32 blocks, batch 1, also bit
+              for bit against the four K4 launches it replaces, whose time
+              as graph replays is printed beside its own; K6 the
               products with the two stored inverses of
               rough16, [1, 7168, 7168] and [256, 896, 896], the latter also
               on the block lists of one red-black colour (128 blocks) and
@@ -263,7 +267,10 @@ Phases, one result line each (or a few), in order:
               iterations, exact relres < 1e-10 (complex128), the options
               chosen (bf16 on, coarsest direct off: n = 229,376), cap and
               clip, <= 16 outer iterations, the launches by kernel, the
-              graphs (the setup's captures beside PR 13's) and a profiled
+              graphs (the setup's captures beside an earlier run's), the warm
+              solve's K4-schur launches (2 a coarsest GCR operator
+              application) and the same solve with the four K4 launches
+              (bit-equal x and counters), and a profiled
               warm solve (as in phase 4); then every
               other shape of
               K1-K4 that set_conf, the setup (its lane chunks follow the
@@ -275,7 +282,7 @@ Phases, one result line each (or a few), in order:
 The second-to-last lines are a JSON summary of the kernels (launches of
 K1-K4, K7 and G (graph replays) from phase 4, K5 from phase 5 (phase 5b's
 under "launches_by_path"), K4-bf16 and K6 from phase 7, K5-bf16
-from phase 8, and under "launches_by_path" those of every path run, phases
+from phase 8, K4-schur from phase 10, and under "launches_by_path" those of every path run, phases
 9 and 10 included; the
 times of the first case and, under "cases", of every case of phase 3; K6's
 device time in the three profiled runs under "device_ms_by_path") and
@@ -347,7 +354,7 @@ KERNEL_EVENTS = {"K1": re.compile(r"dslash_(mrhs_)?kernel<(float|double), true")
 PATH_KERNELS = {"solve": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "setup-graph": ("K1", "K2", "K3", "K4", "K7", "G"),
                 "defaults": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
-                "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "K7", "G"),
+                "rough32": ("K1", "K2", "K3", "K4", "K4-bf16", "K4-schur", "K7", "G"),
                 "sharded": ("K1", "K2", "K3", "K4", "K5", "K7", "G"),
                 "grid4d": ("K1", "K2", "K3", "K4", "K5", "K7", "G"),
                 "direct": ("K1", "K2", "K3", "K4", "K4-bf16", "K6", "K7", "G"),
@@ -555,6 +562,56 @@ def coarse_work(blocks, v, lat, terms, mask=None, parity=None, faces=()):
     entry = nbytes(blocks) // (K * d * d * V)
     return (pairs * d * d * entry + batch * d * 8 * (live + V) + nbytes(*faces),
             8 * d * d * pairs * batch)
+
+
+def schur_work(E, v, lat):
+    """(bytes, operations) of one K4-schur apply: every site's 9 d x d
+    block entries once (E and O), v at the even sites, the odd-site
+    temporary written and read, the output written."""
+    d, V = E.shape[1], math.prod(lat)
+    batch = v.numel() // (d * V)
+    return (2 * nbytes(E) + batch * d * 8 * (V // 2 + V + V), 8 * 9 * d * d * V * batch)
+
+
+def check_schur_split(results, gen, d, L):
+    """K4-schur (the coarsest Schur complement on parity-split blocks) at
+    L^4 and (L/2)^4, d, bf16 and f32 blocks, batch 1 (rough32's and
+    rough16's coarsest shapes) against its plain version, bit for bit
+    against the four K4 launches it replaces (schur with the split path
+    off), and the four launches' time beside it."""
+    from ddalphaamg_tpu_torch.geometry import Geometry
+    from ddalphaamg_tpu_torch.operators import coarse, cuda_coarse, stencil
+
+    for lat in ((L,) * 4, (L // 2,) * 4):
+        V = math.prod(lat)
+        Pk = torch.randn((9, d, d, V), generator=gen, dtype=torch.complex64, device="cuda") * 0.1
+        Pk[0] += torch.eye(d, dtype=Pk.dtype, device="cuda")[:, :, None]
+        full = stencil.CoarseStencilSoA.from_blocks(Pk, Geometry(lat, (2, 2, 2, 2)))
+        for s, tag in ((full.compress(), "bf16"), (full, "f32")):
+            s.split()
+            v = torch.randn((1, d, V), generator=gen, dtype=torch.complex64, device="cuda")
+            label = f"K4-schur {tag} blocks {lat[0]}^4 d={d} batch 1"
+            compare(results, "K4-schur", label,
+                    lambda: cuda_coarse.schur_split(s.E, s.O, v, lat),
+                    lambda: coarse.schur_split_plain(s.E, s.O, v, lat), torch.complex64,
+                    schur_work(s.E, v, lat))
+
+            def four():
+                saved, stencil.SPLIT_SCHUR_DEVICES = stencil.SPLIT_SCHUR_DEVICES, ()
+                try:
+                    return stencil.schur(s, v)
+                finally:
+                    stencil.SPLIT_SCHUR_DEVICES = saved
+
+            if not torch.equal(stencil.schur(s, v), four()):
+                fail(f"{label}: not bit-equal to the four K4 launches")
+            case = results["K4-schur"]["cases"][-1]
+            case["four_launch_ms"], case["graph_ms"] = graph_ms(four), graph_ms(
+                lambda: cuda_coarse.schur_split(s.E, s.O, v, lat))
+            print(f"  {label}: bit-equal to the four K4 launches; as graph replays "
+                  f"{case['graph_ms']:.4f} ms against the four launches' "
+                  f"{case['four_launch_ms']:.4f} ms", flush=True)
+        del Pk, full
 
 
 def stacked_einsum(blocks, v, lat, terms, mask=None, halos=None, parity=None):
@@ -1014,6 +1071,7 @@ def check_kernels(results, U32):
                     torch.complex64, coarse_work(blocks, v, clat, terms, mask, parity),
                     stacked_einsum(blocks, v, clat, terms, mask, parity=parity))
         del Pk, Pk16
+    check_schur_split(results, gen, d, lat[0] // 2)
     check_halo_kernels(results, gen, (lat[0] // 2,) * 4, d)
     check_peer_kernels(results, gen, lat, d)
     check_dense_kernel(results, gen, d, lat)
@@ -2160,8 +2218,11 @@ def rough32_path(U, field_s):
     with launch_shapes(shapes), traced():
         x, info = solver.solve(rhs)
     graph_stats(name, t0, solver, " of the cold solve")
+    before = kernels.counts()
     x2, info2 = solver.solve(rhs)
     counts = kernels.counts()
+    warm = {k: n - before[k] for k, n in counts.items()}
+    schur_check(name, t0, solver, rhs, x2, info2, warm, dict(solver.mg.stats))
     exact, exact2 = exact_relres(solver, x, rhs), exact_relres(solver, x2, rhs)
     chosen = {k: on for k, (on, _) in info.options.items()}
     phase(name, t0, "options: " + "; ".join(f"{k} {'on' if on else 'off'} ({why})"
@@ -2200,6 +2261,41 @@ def rough32_path(U, field_s):
         cuda_coarse.coarse_apply = apply
     held_sweep(name, t0, solver.mg, tvs)
     return counts, profile, shapes
+
+
+def schur_check(name, t0, solver, rhs, x, info, launches, stats):
+    """The warm solve's K4-schur launches against its coarsest GCR's
+    iterations and operator applications (stats, the solve's own counts:
+    2 launches an apply, one an iteration and one a restart that ran), and
+    the same solve with the four K4 launches (the split path off, the
+    programs captured anew): bit-equal x and counters, and the K4-bf16
+    launches the split path saved."""
+    import numpy as np
+
+    from ddalphaamg_tpu_torch import kernels
+    from ddalphaamg_tpu_torch.operators import stencil
+
+    mg = solver.mg
+    saved, stencil.SPLIT_SCHUR_DEVICES = stencil.SPLIT_SCHUR_DEVICES, ()
+    try:
+        mg.drop_graphs()
+        before = kernels.counts()
+        x4, info4 = solver.solve(rhs)
+        four = {k: n - before[k] for k, n in kernels.counts().items()}
+    finally:
+        stencil.SPLIT_SCHUR_DEVICES = saved
+        mg.drop_graphs()
+    same = (np.array_equal(x, x4) and info.iterations == info4.iterations
+            and info.coarse_average == info4.coarse_average)
+    iters, matvecs, split = stats["coarse_iterations"], stats["coarse_matvecs"], launches["K4-schur"]
+    phase(name, t0, f"warm solve: K4-schur {split} launches for {iters:.0f} coarsest GCR iterations "
+          f"and {matvecs:.0f} operator applications counted ({split / max(iters, 1):.3f} an "
+          f"iteration), K4-bf16 {launches['K4-bf16']} (with the four launches: {four['K4-bf16']}, "
+          f"K4-schur {four['K4-schur']}); the four-launch solve {'bit-equal' if same else 'DIFFERS'} "
+          f"(iterations {info4.iterations}, coarse average {info4.coarse_average:.4f}, "
+          f"{info4.solve_time:.3f} s against {info.solve_time:.3f} s)")
+    if not same or four["K4-schur"] or not 2 * iters <= split <= 2 * matvecs:
+        fail(f"{name}: the split Schur path is not the four-launch path's twin")
 
 
 def held_sweep(name, t0, mg, tvs):
@@ -2872,6 +2968,7 @@ def main():
     paths["defaults"] = defaults_path(iterations, warm, direct_warm_s)
     torch.cuda.empty_cache()
     paths["rough32"], profile32, shapes = rough32_path(U32, field_s)
+    counts["K4-schur"] = paths["rough32"]["K4-schur"]
     gc.collect()        # the hierarchy, with its graphs' pools, before the shape checks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -91,8 +91,12 @@
 //    At 8^4 the multi kernel wins from batch 6 (f32) or 8 (bf16), at 4^4
 //    from about 9 (f32) or 12 (bf16), extrapolated from batches 1-8:
 //    MRHS_MIN_BATCH_WIDE and MRHS_MIN_BATCH.
+// 3. coarse_b1_kernel_schur (K4-schur, entry points ddaamg_schur_*): the
+//    coarsest level's even-site Schur complement as kernel 1's design on
+//    blocks stored by parity, two launches an apply in place of four K4
+//    launches that each read every site's blocks (section 3 below).
 //
-// Both kernels: no atomics, sums in an order fixed by the code (two
+// All three kernels: no atomics, sums in an order fixed by the code (two
 // launches on the same inputs give identical bits; the order differs
 // from the earlier design, so results differ in the last bits); ragged
 // edges (V not a multiple of the tile, V not a multiple of the sites in
@@ -264,6 +268,15 @@ __device__ __forceinline__ B entry(const T& raw, int e) {
 // the tile (one load of SV entries), g = lane / PL and the warp pick the
 // term slot q; slot q sums the terms t = q, q + Q, ... of the flattened
 // (k, j) range, Q = G * blockDim.y.
+
+// warps of a batch-1 thread block for nt terms: 8, fewer where a term slot
+// would get fewer than B1_SLOT_TERMS terms (G slots a warp)
+inline int b1_warps(int nt, int G) {
+  int nw = B1_WARPS;
+  while (nw > 1 && nt < B1_SLOT_TERMS * G * nw) nw /= 2;
+  return nw;
+}
+
 template <typename R, bool HALO, typename B, int SV, int TS1>
 __global__ void __launch_bounds__(32 * B1_WARPS)
     coarse_b1_kernel(cplx<R>* __restrict__ out, const cplx<R>* __restrict__ v, const B* __restrict__ blocks,
@@ -529,6 +542,257 @@ __global__ void __launch_bounds__(32 * Mrhs<R>::WR * Mrhs<R>::WB, 1)
   cluster.sync();  // no block leaves while another still reads its ring
 }
 
+// ---------------------------------------------------------------------------
+// 3. K4-schur: the coarsest level's Schur complement on parity-split blocks
+//
+//   out_e = A_ee v_e - sum_k hop_k t_o,  t_o = A_oo^-1 sum_k hop_k v_e,  out_o = 0
+//
+// (the four-launch schur of operators/stencil.py in two launches).  The
+// blocks are stored by parity: E [9, d, d, V/2] holds the even sites' self
+// block and hops, O [9, d, d, V/2] the odd sites' self-block inverse (slot
+// 0) and hops, each half's sites by checkerboard index site >> 1 (every
+// extent even: the x-pair (2h, 2h + 1) holds one site of each parity), so
+// every 16-byte load holds sites of the parity the launch computes and each
+// block row is read once an apply.  Fields stay [batch, d, V]; t_o is
+// compact [batch, d, V/2].  Both launches are the batch-1 design above
+// (tile, term slots, 16-byte loads, fixed-order sums) with the slots and
+// warps the four launches had (b1_warps of 8 d terms for a hop sum, of d
+// for a self term), so each sum meets its terms in the same order and the
+// result is bit-equal to the four launches'.
+//
+// Launch 1 (odd tiles): a cluster of gy blocks a tile, each block SCHUR_NH
+// groups of nw warps that sum the hops of one row chunk each into shared
+// memory; the cluster exchanges the rows (distributed shared memory), and
+// each block applies A_oo^-1 to its row chunks with groups of nws warps,
+// one chunk a group.  Launch 2 (even tiles): per round of up to nw / nws
+// row chunks, the self terms by groups, then each chunk's hops by the
+// whole block, and out = self - hops; the odd site of each pair gets an
+// exact zero.  At 8^4, d = 56, bf16, batch 1: launch 1 0.1004 ms, launch 2
+// 0.0932 ms, 69 / 74 % of their byte bounds; the four launches 0.358 ms.
+
+// Kernel 1's term loop and butterfly for kernel 3: term slot q of Q (its
+// warp's index among the nw warps that share the sum, times G, plus g) sums
+// rows [i0, i0 + nrow) of its SV sites over the terms t = q, q + Q, ... of
+// the flattened (kk, j) range [0, nk d): term t reads the block row base +
+// (t d + ii) ld (base: the first term's row i0 at the thread's sites) and
+// the field through tab[kk * TS1 + s0 + e]; the slots of a warp are then
+// summed by a fixed butterfly, and lane g = 0 writes the warp's sums to
+// part[w].  Kernel 1 keeps its own copy: calling this from it changed its
+// code and made the 16^4 block-masked apply 2.8 % slower (2.1219 against
+// 2.0636 ms, bf16, batch 1, H100 80GB HBM3 at 700 W).
+template <typename R, typename B, int SV, int TS1>
+__device__ __forceinline__ void b1_slot_sums(cplx<R> (*part)[B1_ICH][TS1], const B* base, long long ld,
+                                             const Src<R>* tab, int nk, int d, int nrow, int w, int q, int Q) {
+  constexpr int PL = TS1 / SV;
+  using T = typename Raw<sizeof(B) * SV>::T;
+  const int lane = threadIdx.x, s0 = (lane % PL) * SV, nt = nk * d;
+  cplx<R> acc[B1_ICH][SV];
+#pragma unroll
+  for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+    for (int e = 0; e < SV; ++e) acc[ii][e] = cx<R>(0, 0);
+  for (int t0 = q; t0 < nt; t0 += B1_UNROLL * Q) {
+    T raw[B1_UNROLL][B1_ICH];
+    cplx<R> vj[B1_UNROLL][SV];
+#pragma unroll
+    for (int u = 0; u < B1_UNROLL; ++u) {
+      const int t = t0 + u * Q;
+      const int kk = t / d, j = t - kk * d;
+      bool any = false;
+#pragma unroll
+      for (int e = 0; e < SV; ++e) {
+        vj[u][e] = cx<R>(0, 0);
+        if (t < nt) {
+          const Src<R> s = tab[kk * TS1 + s0 + e];
+          if (s.p != nullptr) {
+            vj[u][e] = s.p[(long long)j * s.ld];
+            any = true;
+          }
+        }
+      }
+      const T* row = reinterpret_cast<const T*>(base + (long long)t * d * ld);
+#pragma unroll
+      for (int ii = 0; ii < B1_ICH; ++ii) {
+        raw[u][ii] = T{};
+        if (any && ii < nrow) raw[u][ii] = __ldg(row + (long long)ii * ld / SV);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B1_UNROLL; ++u)
+#pragma unroll
+      for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+        for (int e = 0; e < SV; ++e) cmac(acc[ii][e], widen(entry<B>(raw[u][ii], e)), vj[u][e]);
+  }
+
+  // lanes of one site vector and different slots: a fixed butterfly
+#pragma unroll
+  for (int off = PL; off < 32; off <<= 1)
+#pragma unroll
+    for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+      for (int e = 0; e < SV; ++e) {
+        acc[ii][e].re += __shfl_xor_sync(0xffffffffu, acc[ii][e].re, off);
+        acc[ii][e].im += __shfl_xor_sync(0xffffffffu, acc[ii][e].im, off);
+      }
+  if (lane / PL == 0)
+#pragma unroll
+    for (int ii = 0; ii < B1_ICH; ++ii)
+#pragma unroll
+      for (int e = 0; e < SV; ++e) part[w][ii][s0 + e] = acc[ii][e];
+}
+
+// the sums of the warps [w0, w0 + nw) for row ii, site s, in warp order
+template <typename R, int TS1>
+__device__ __forceinline__ cplx<R> b1_warp_sum(cplx<R> (*part)[B1_ICH][TS1], int w0, int nw, int ii, int s) {
+  cplx<R> sum = part[w0][ii][s];
+  for (int q = 1; q < nw; ++q) sum = cadd(sum, part[w0 + q][ii][s]);
+  return sum;
+}
+
+// the site of parity par in the x-pair of checkerboard index hs
+__device__ __forceinline__ int parity_site(const Lattice& L, int hs, int par) {
+  int c[4];
+  site_coords(L, 2 * hs, c);
+  return 2 * hs + (((c[0] + c[1] + c[2]) & 1) ^ par);
+}
+
+constexpr int SCHUR_SMEM_MAX = 160 * 1024;  // dynamic shared memory of launch 1, at most
+constexpr int SCHUR_NH = 2;  // row-chunk groups a block of launch 1 works on at once
+
+template <typename R, typename B, int SV, int TS1, bool ODD>
+__global__ void __launch_bounds__(32 * B1_WARPS * (ODD ? SCHUR_NH : 1))
+    coarse_b1_kernel_schur(cplx<R>* __restrict__ out, cplx<R>* __restrict__ t, const cplx<R>* __restrict__ v,
+                           const B* __restrict__ blocks, Lattice L, int V, int d, int batch, int gy, int nw,
+                           int nws) {
+  constexpr int G = 32 / (TS1 / SV), NH = ODD ? SCHUR_NH : 1;
+  extern __shared__ __align__(16) unsigned char hs_raw[];  // launch 1: the hop sums [d][TS1]
+  cplx<R>* hs = reinterpret_cast<cplx<R>*>(hs_raw);
+  __shared__ Src<R> tab[9 * TS1];
+  __shared__ cplx<R> part[NH * B1_WARPS][B1_ICH][TS1];
+  const int Vh = V / 2, nic = (d + B1_ICH - 1) / B1_ICH;
+  const int nthr = 32 * blockDim.y, tid = threadIdx.y * 32 + threadIdx.x;
+  int b, y, site0;
+  if constexpr (ODD) {  // x = (tile * batch + b) * gy + y: a cluster per (tile, b)
+    y = blockIdx.x % gy;
+    b = (blockIdx.x / gy) % batch;
+    site0 = (blockIdx.x / gy / batch) * TS1;
+  } else {  // x = (tile * gy + y) * batch + b, as kernel 1
+    b = blockIdx.x % batch;
+    y = (blockIdx.x / batch) % gy;
+    site0 = (blockIdx.x / batch / gy) * TS1;
+  }
+  // hops: tab[kk * TS1 + s], kk = 0..7 (term 1 + kk); launch 2 also the
+  // self term at tab[8 * TS1 + s]
+  for (int e = tid; e < (ODD ? 8 : 9) * TS1; e += nthr) {
+    const int s = e % TS1, kk = e / TS1;
+    Src<R> src;
+    src.p = nullptr;
+    src.ld = V;
+    if (site0 + s < Vh) {
+      const int site = parity_site(L, site0 + s, ODD ? 1 : 0);
+      if (kk == 8) {
+        src.p = v + (long long)b * d * V + site;
+      } else {
+        int c[4];
+        site_coords(L, site, c);
+        const int nb = site_step(L, site, c, kk & 3, kk < 4 ? +1 : -1);
+        if (ODD) {
+          src.p = v + (long long)b * d * V + nb;
+        } else {
+          src.p = t + (long long)b * d * Vh + (nb >> 1);
+          src.ld = Vh;
+        }
+      }
+    }
+    tab[e] = src;
+  }
+  __syncthreads();
+
+  // the block's row chunks: c(m) = y NH + m % NH + (m / NH) gy NH, m = 0, 1,
+  // ... (row-chunk group y NH + h of gy NH is the block's part h), mc of them
+  const int gyn = gy * NH;
+  auto chunk = [&](int m) { return y * NH + m % NH + (m / NH) * gyn; };
+  const int w = threadIdx.y, g = threadIdx.x / (TS1 / SV), s0 = (threadIdx.x % (TS1 / SV)) * SV;
+  const int ng = NH * nw / nws, wg = w / nws;  // groups of nws warps for a self term
+  const long long hop0 = (long long)d * d * Vh + site0 + s0;  // term 1, row 0 at the thread's sites
+  // the hops of row chunk c by part w / nw of the block into part (c >= nic: none)
+  auto hops = [&](int c) {
+    if (c < nic)
+      b1_slot_sums<R, B, SV, TS1>(part, blocks + hop0 + (long long)c * B1_ICH * Vh, Vh, tab, 8, d,
+                                  min(B1_ICH, d - c * B1_ICH), w, (w % nw) * G + g, G * nw);
+  };
+  // the self term of row chunk c by this thread's group into part (c >= nic: none)
+  auto self = [&](int c, const Src<R>* stab) {
+    if (c < nic)
+      b1_slot_sums<R, B, SV, TS1>(part, blocks + (long long)c * B1_ICH * Vh + site0 + s0, Vh, stab, 1, d,
+                                  min(B1_ICH, d - c * B1_ICH), w, (w % nws) * G + g, G * nws);
+  };
+
+  if constexpr (ODD) {
+    for (int m0 = 0; chunk(m0) < nic; m0 += NH) {
+      hops(chunk(m0 + w / nw));
+      __syncthreads();
+      for (int o = tid; o < NH * B1_ICH * TS1; o += nthr) {
+        const int h = o / (B1_ICH * TS1), ii = (o / TS1) % B1_ICH, s = o % TS1, i = chunk(m0 + h) * B1_ICH + ii;
+        if (i < d) hs[i * TS1 + s] = b1_warp_sum<R, TS1>(part, h * nw, nw, ii, s);
+      }
+      __syncthreads();
+    }
+    // the rows of the cluster's other blocks, then A_oo^-1 from the tab of
+    // the tile's hop sums
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int e = tid; e < d * TS1; e += nthr) {
+      const int owner = (e / TS1 / B1_ICH) % gyn / NH;
+      if (owner != y) hs[e] = *cluster.map_shared_rank(hs + e, owner);
+    }
+    for (int s = tid; s < TS1; s += nthr) {
+      tab[s].p = site0 + s < Vh ? hs + s : nullptr;
+      tab[s].ld = TS1;
+    }
+    cluster.sync();  // every copy is done before a block leaves
+    for (int m0 = 0; chunk(m0) < nic; m0 += ng) {
+      self(chunk(m0 + wg), tab);
+      __syncthreads();
+      for (int o = tid; o < ng * B1_ICH * TS1; o += nthr) {
+        const int og = o / (B1_ICH * TS1), ii = (o / TS1) % B1_ICH, s = o % TS1;
+        const int i = chunk(m0 + og) * B1_ICH + ii;
+        if (i < d && site0 + s < Vh)
+          t[((long long)b * d + i) * Vh + site0 + s] = b1_warp_sum<R, TS1>(part, og * nws, nws, ii, s);
+      }
+      __syncthreads();
+    }
+  } else {
+    __shared__ cplx<R> own[B1_WARPS][B1_ICH][TS1];  // the self terms of a round's chunks
+    for (int m0 = 0; chunk(m0) < nic; m0 += ng) {
+      self(chunk(m0 + wg), tab + 8 * TS1);
+      __syncthreads();
+      for (int o = tid; o < ng * B1_ICH * TS1; o += nthr) {
+        const int og = o / (B1_ICH * TS1), ii = (o / TS1) % B1_ICH, s = o % TS1;
+        own[og][ii][s] = b1_warp_sum<R, TS1>(part, og * nws, nws, ii, s);
+      }
+      __syncthreads();
+      for (int og = 0; og < ng && chunk(m0 + og) < nic; ++og) {
+        const int c = chunk(m0 + og);
+        hops(c);
+        __syncthreads();
+        for (int o = tid; o < B1_ICH * TS1; o += nthr) {
+          const int ii = o / TS1, s = o % TS1, i = c * B1_ICH + ii;
+          if (i < d && site0 + s < Vh) {
+            const int site = parity_site(L, site0 + s, 0);
+            const cplx<R> sum = csub(own[og][ii][s], b1_warp_sum<R, TS1>(part, 0, nw, ii, s));
+            cplx<R>* row = out + ((long long)b * d + i) * V;
+            row[site] = sum;
+            row[site ^ 1] = cx<R>(0, 0);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
 namespace {
 
 // tile: 16 sites, 32 from B1_WIDE sites on; warps: 8, fewer where a term
@@ -540,8 +804,7 @@ int launch_b1_tiles(void* out, const void* v, const void* blocks, Halo<R> h, Lat
                     int k1, int4 mb, int parity, int parity_offset, int batch, cudaStream_t stream) {
   constexpr int G = 32 / (TS1 / SV);
   const int nt = (k1 - k0) * d, nic = (d + B1_ICH - 1) / B1_ICH;
-  int nw = B1_WARPS;
-  while (nw > 1 && nt < B1_SLOT_TERMS * G * nw) nw /= 2;
+  const int nw = b1_warps(nt, G);
   const long long per_group = (long long)((V + TS1 - 1) / TS1) * batch * 32 * nw;
   const int gy = (int)std::max(1LL, std::min((long long)nic, B1_THREADS / per_group));
   const long long blocks_x = per_group / (32 * nw) * gy;
@@ -643,6 +906,68 @@ Halo<R> no_halo() {
   return h;
 }
 
+// K4-schur, one launch (phase 1: odd tiles, 2: even tiles): the tile of
+// kernel 1 at this V, the hop sums' warps nw and the self terms' nws of the
+// four launches, and as many row-chunk groups as launch_b1_tiles takes; in
+// launch 1 a block of SCHUR_NH groups (a cluster of 2 blocks of 8 warps is
+// resident on 132 SMs where one of 4 was not: 62 of 64 clusters at 8^4),
+// the blocks of a tile one cluster (at most MAX_SPLITS)
+template <typename R, typename B, int SV, int TS1>
+int launch_schur_tiles(void* out, void* t, const void* v, const void* E, const void* O, Lattice L, int V, int d,
+                       int batch, int phase, cudaStream_t stream) {
+  constexpr int G = 32 / (TS1 / SV);
+  const int nic = (d + B1_ICH - 1) / B1_ICH, nw = b1_warps(8 * d, G), nws = b1_warps(d, G);
+  const long long tiles = (V / 2 + TS1 - 1) / TS1, per_group = tiles * batch * 32 * nw;
+  const int groups = (int)std::max(1LL, std::min((long long)nic, B1_THREADS / per_group));
+  if (phase == 2) {
+    coarse_b1_kernel_schur<R, B, SV, TS1, false><<<dim3((unsigned)(tiles * batch * groups)), dim3(32, nw), 0,
+                                                   stream>>>((cplx<R>*)out, (cplx<R>*)t, (const cplx<R>*)v,
+                                                             (const B*)E, L, V, d, batch, groups, nw, nws);
+    return (int)cudaGetLastError();
+  }
+  const int gy = std::min((groups + SCHUR_NH - 1) / SCHUR_NH, MAX_SPLITS);
+  auto kernel = coarse_b1_kernel_schur<R, B, SV, TS1, true>;
+  const size_t smem = (size_t)d * TS1 * sizeof(cplx<R>);
+  if (smem > SCHUR_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool ready = false;  // once per instance: shared memory above 48 KB
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SCHUR_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * batch * gy));
+  cfg.blockDim = dim3(32, SCHUR_NH * nw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)gy;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, (cplx<R>*)out, (cplx<R>*)t, (const cplx<R>*)v, (const B*)O, L, V, d,
+                                 batch, gy, nw, nws);
+}
+
+// K4-schur: 16-byte loads (each half's sites fill them: with even extents
+// V / 2 is a multiple of 8; the blocks must be 16-byte aligned, as fresh
+// allocations are); the tile by V as kernel 1's, so the slots match the
+// four launches'
+template <typename R, typename B>
+int launch_schur(void* out, void* t, const void* v, const void* E, const void* O, int d, int tt, int z, int y,
+                 int x, int batch, int phase, void* stream) {
+  if ((tt | z | y | x) & 1 || (phase != 1 && phase != 2) || (uintptr_t)E % 16 || (uintptr_t)O % 16)
+    return (int)cudaErrorInvalidValue;
+  Lattice L = make_lattice(tt, z, y, x);
+  const int V = tt * z * y * x;
+  cudaStream_t st = (cudaStream_t)stream;
+  constexpr int SV = 16 / sizeof(B);
+  return V >= B1_WIDE ? launch_schur_tiles<R, B, SV, 32>(out, t, v, E, O, L, V, d, batch, phase, st)
+                      : launch_schur_tiles<R, B, SV, 16>(out, t, v, E, O, L, V, d, batch, phase, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,6 +1025,27 @@ int ddaamg_coarse_halo_bf16(void* out, const void* v, const void* blocks, const 
                             int x, int batch, int regime, void* stream) {
   const void* faces[8] = {fwd_t, bwd_t, fwd_z, bwd_z, fwd_y, bwd_y, fwd_x, bwd_x};
   return launch_halo<float, bf16x2>(out, v, blocks, faces, d, k0, k1, t, z, y, x, batch, regime, stream);
+}
+
+// K4-schur (kernel 3): launch `phase` (1: t = A_oo^-1 sum_k hop_k v on the
+// odd sites, t compact [batch, d, V/2]; 2: out = A_ee v - sum_k hop_k t on
+// the even sites, zero on the odd) of the Schur complement on the
+// parity-split blocks E, O [9, d, d, V/2] (complex of the field's
+// precision, or bf16 pairs with complex64 fields); every extent even.
+// Returns cudaGetLastError() (or the launch's error).
+int ddaamg_schur_f32(void* out, void* t, const void* v, const void* E, const void* O, int d, int tt, int z, int y,
+                     int x, int batch, int phase, void* stream) {
+  return launch_schur<float, cplx<float>>(out, t, v, E, O, d, tt, z, y, x, batch, phase, stream);
+}
+
+int ddaamg_schur_f64(void* out, void* t, const void* v, const void* E, const void* O, int d, int tt, int z, int y,
+                     int x, int batch, int phase, void* stream) {
+  return launch_schur<double, cplx<double>>(out, t, v, E, O, d, tt, z, y, x, batch, phase, stream);
+}
+
+int ddaamg_schur_bf16(void* out, void* t, const void* v, const void* E, const void* O, int d, int tt, int z, int y,
+                      int x, int batch, int phase, void* stream) {
+  return launch_schur<float, bf16x2>(out, t, v, E, O, d, tt, z, y, x, batch, phase, stream);
 }
 
 }  // extern "C"

@@ -76,6 +76,11 @@ KERNELS = {
                       "ddalphaamg_tpu_torch/csrc/coarse.cu",
                       "ddalphaamg_tpu/operators/pallas_coarse.py:223 (bf16 blocks "
                       "widened at pallas_coarse.py:140-142)"),
+    "K4-schur": Kernel("K4-schur the coarsest level's even-site Schur complement on "
+                       "parity-split blocks, two launches an apply", "cuda",
+                       "ddalphaamg_tpu_torch/csrc/coarse.cu",
+                       "ddalphaamg_tpu/operators/pallas_coarse.py:200 (four K4 applies of "
+                       "ddalphaamg_tpu/mg/hierarchy.py:659's Schur operator)"),
     "K6": Kernel("K6 bf16 batched matvec", "cuda", "ddalphaamg_tpu_torch/csrc/dense.cu",
                  "ddalphaamg_tpu/operators/stencil.py:710, :727 and "
                  "ddalphaamg_tpu/smoothers/sap.py:193 (XLA einsums, no pallas_call)"),
@@ -189,6 +194,9 @@ _SIGNATURES = {
     "ddaamg_coarse_halo_f64": [_P] * 11 + [_I] * 9 + [_P],
     "ddaamg_coarse_bf16": [_P, _P, _P] + [_I] * 15 + [_P],
     "ddaamg_coarse_halo_bf16": [_P] * 11 + [_I] * 9 + [_P],
+    "ddaamg_schur_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "ddaamg_schur_f64": [_P] * 5 + [_I] * 7 + [_P],
+    "ddaamg_schur_bf16": [_P] * 5 + [_I] * 7 + [_P],
     "ddaamg_dense_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ddaamg_dense_bf16_mrhs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ddaamg_gcr_path": [_L, _I, _I],

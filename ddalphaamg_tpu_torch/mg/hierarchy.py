@@ -679,14 +679,22 @@ class Multigrid:
     def _cycle_view(self, level: MGLevel):
         """The stencil the cycles apply at this level: the level's stencil,
         or with coarse_block_bf16 (depth > 0, no y/x split: module note) its
-        bf16 copy, made at first use after each re_setup."""
+        bf16 copy, made at first use after each re_setup.  A coarsest level
+        solved by the Schur GCR (odd-even, no coarsest_direct) and not
+        sharded gets the view's parity-split blocks (K4-schur) at the same
+        time; re_setup in place rewrites them (CoarseStencilSoA.refresh)."""
         mesh = self.cfg.mesh
         if (not self.cfg.coarse_block_bf16 or level.depth == 0
                 or (mesh is not None and mesh.splits_yx)):
-            return level.stencil
-        if level.cycle_stencil is None:
-            level.cycle_stencil = level.stencil.compress()
-        return level.cycle_stencil
+            view = level.stencil
+        else:
+            if level.cycle_stencil is None:
+                level.cycle_stencil = level.stencil.compress()
+            view = level.cycle_stencil
+        if (view.mesh is None and level.is_coarsest and level.depth > 0 and view.E is None
+                and self._odd_even(level) and not self.cfg.coarsest_direct):
+            view.split()
+        return view
 
     def _timed(self, name: str, fn):
         """fn() timed on the host clock around a device synchronization."""

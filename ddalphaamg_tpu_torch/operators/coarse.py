@@ -16,6 +16,12 @@ leave the slab read faces received from the neighbor ranks: halos = {mu:
 v(x - mu) on its first, each [*batch, d, V / n_mu] in lexicographic order
 of the remaining coordinates (parallel/comm.face).
 
+Parity-split blocks (split_blocks; the coarsest level's Schur complement,
+K4-schur): E [9, d, d, V/2] holds the even sites' self block and hops, O
+[9, d, d, V/2] the odd sites' self-block inverse in slot 0 and their hops,
+each half by checkerboard index site >> 1 (every extent even), exact
+copies of the packed blocks' entries in their dtype.
+
 Compressed blocks (the JAX package's CoarseStencilSoA.compress, stencil.py:
 385-403) are the same tensor rounded to bfloat16 and stored as a real
 tensor [K, d, d, V, 2] with (re, im) interleaved, so one block entry is one
@@ -30,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .fast import parity_mask
+from .fast import parity_sites, compact_parity, expand_parity, parity_mask
 
 
 class CoarseOperator(NamedTuple):
@@ -146,3 +152,40 @@ def coarse_apply_halo_plain(blocks, v, lattice, halos, terms=(0, 9)):
         out = out + torch.einsum("jix,...jx->...ix", widen(blocks[k]),
                                  neighbor(v, k, tuple(lattice), halos))
     return out
+
+
+def split_blocks(Pk: torch.Tensor, Pk_inv: torch.Tensor, lattice, out=None):
+    """The parity-split blocks (E, O) of the packed blocks Pk [9, d, d, V]
+    and the self-block inverse Pk_inv [1, d, d, V] (complex, or bf16 pairs
+    [..., V, 2]): an exact gather of their entries (module note), written
+    into out = (E, O) if given."""
+    lattice = tuple(lattice)
+    if any(n % 2 for n in lattice):
+        raise ValueError(f"parity-split blocks need even extents, got {lattice}")
+    even, odd = (parity_sites(lattice, p, 0, Pk.device) for p in (0, 1))
+    if out is None:
+        shape = (*Pk.shape[:3], even.numel(), *Pk.shape[4:])
+        out = tuple(torch.empty(shape, dtype=Pk.dtype, device=Pk.device) for _ in range(2))
+    E, O = out
+    torch.index_select(Pk, 3, even, out=E)
+    torch.index_select(Pk_inv, 3, odd, out=O[:1])
+    torch.index_select(Pk[1:], 3, odd, out=O[1:])
+    return E, O
+
+
+def _split_term(blocks, v):
+    return torch.einsum("jih,...jh->...ih", widen(blocks), v)
+
+
+def schur_split_plain(E, O, v, lattice):
+    """Plain K4-schur: the even-site Schur complement A_ee v_e - sum_k hop_k
+    A_oo^-1 sum_k hop_k v_e of v [*B, d, V] from the split blocks (E, O),
+    zero on the odd sites; bf16 blocks are widened term by term."""
+    lattice = tuple(lattice)
+    _check_block_dtype(E, v)
+    h = sum(_split_term(O[k], compact_parity(neighbor(v, k, lattice), lattice, 1))
+            for k in range(1, 9))
+    t = expand_parity(_split_term(O[0], h), lattice, 1)
+    hops = sum(_split_term(E[k], compact_parity(neighbor(t, k, lattice), lattice, 0))
+               for k in range(1, 9))
+    return expand_parity(_split_term(E[0], compact_parity(v, lattice, 0)) - hops, lattice, 0)

@@ -1,5 +1,6 @@
-"""Wrappers of the coarse-operator kernels K4 and K5 and of their bf16-block
-instances K4-bf16 and K5-bf16 (csrc/coarse.cu).
+"""Wrappers of the coarse-operator kernels K4 and K5, of their bf16-block
+instances K4-bf16 and K5-bf16, and of K4-schur, the coarsest level's Schur
+complement on parity-split blocks (csrc/coarse.cu).
 
 For tensors on the CPU they take the plain versions
 (operators/coarse.coarse_apply_plain / coarse_apply_halo_plain); for CUDA
@@ -26,10 +27,20 @@ import math
 import torch
 
 from .. import kernels
-from .coarse import coarse_apply_halo_plain, coarse_apply_plain
+from .coarse import coarse_apply_halo_plain, coarse_apply_plain, schur_split_plain
 
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64"}
 _REGIME = {None: 0, "batch1": 1, "multi": 2}
+# the launcher's crossover (csrc/coarse.cu): the multi-right-hand-side
+# kernel from this batch on, at B1_WIDE sites or more and below
+B1_WIDE, MRHS_MIN_BATCH_WIDE, MRHS_MIN_BATCH = 2048, 6, 12
+
+
+def batch1_regime(v, V: int) -> bool:
+    """Whether K4's launcher would pick its batch-1 kernel for the lanes of
+    v [*B, d, V] (regime 0's rule)."""
+    batch = v.numel() // (v.shape[-2] * V)
+    return batch < (MRHS_MIN_BATCH_WIDE if V >= B1_WIDE else MRHS_MIN_BATCH)
 
 
 def _instance(blocks, v) -> str:
@@ -117,4 +128,36 @@ def coarse_apply_halo(blocks, v, lattice, halos, terms=(0, 9), kernel=None):
             *(p for mu in range(4) for p in ptr.get(mu, none)), d, *terms, *lattice, batch,
             _REGIME[kernel], kernels.stream_ptr(v.device))
     kernels.check(rc, "coarse halo")
+    return out
+
+
+def schur_split(E, O, v, lattice):
+    """K4-schur: the even-site Schur complement A_ee v_e - sum_k hop_k
+    A_oo^-1 sum_k hop_k v_e of v [*B, d, V], zero on the odd sites, from
+    the parity-split blocks E, O [9, d, d, V/2] (operators/coarse.
+    split_blocks; every extent even) in two launches, each counted under
+    K4-schur: A_oo^-1 of the hops on the odd sites into a compact
+    temporary, then the even sites."""
+    lattice = tuple(lattice)
+    if v.device.type == "cpu":
+        return schur_split_plain(E, O, v, lattice)
+    inst = _instance(E, v)
+    V = math.prod(lattice)
+    d = E.shape[1]
+    if (O.dtype != E.dtype or O.shape != E.shape or E.shape[:4] != (9, d, d, V // 2)
+            or E.shape[4:] != ((2,) if inst == "bf16" else ()) or v.shape[-2:] != (d, V)
+            or any(n % 2 for n in lattice)):
+        raise ValueError(f"split blocks {tuple(E.shape)} / {tuple(O.shape)} and field "
+                         f"{tuple(v.shape)} do not match lattice {lattice}")
+    if not all(t.is_contiguous() and t.device == v.device for t in (E, O, v)):
+        raise ValueError("split blocks and field must be contiguous on one device")
+    batch = v.numel() // (d * V)
+    out = torch.empty_like(v)
+    t = torch.empty((batch, d, V // 2), dtype=v.dtype, device=v.device)
+    fn = getattr(kernels.lib(), f"ddaamg_schur_{inst}")
+    for phase in (1, 2):
+        kernels.launched("K4-schur")
+        rc = fn(out.data_ptr(), t.data_ptr(), v.data_ptr(), E.data_ptr(), O.data_ptr(), d,
+                *lattice, batch, phase, kernels.stream_ptr(v.device))
+        kernels.check(rc, "schur")
     return out

@@ -71,7 +71,7 @@ def parity_mask(lattice, parity: int, dtype=torch.float64, device=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _parity_sites(lattice, parity, offset, device):
+def parity_sites(lattice, parity, offset, device):
     """Site indices of one parity in site order.  With an even x extent
     each x-pair (2h, 2h + 1) holds one site of either parity, so the k-th
     of them is site 2k or 2k + 1: the checkerboard index is site // 2."""
@@ -98,7 +98,7 @@ def compact_parity(a, lattice, parity: int, offset: int = 0):
     """[..., V] -> [..., V/2]: the entries at the sites of one parity, by
     checkerboard index (the compact odd-site storage of the fine clover
     inverse; offset as in parity_mask)."""
-    idx = _parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)
+    idx = parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)
     return a.index_select(-1, idx).contiguous()
 
 
@@ -106,7 +106,7 @@ def expand_parity(a, lattice, parity: int, offset: int = 0):
     """Inverse of compact_parity: [..., V/2] -> [..., V], zeros at the
     sites of the other parity."""
     full = a.new_zeros((*a.shape[:-1], math.prod(lattice)))
-    full[..., _parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)] = a
+    full[..., parity_sites(tuple(lattice), int(parity), int(offset) & 1, a.device)] = a
     return full
 
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,11 +51,14 @@ from ..geometry import Geometry
 from ..parallel import comm, shard_ops, soa_halo
 from ..parallel.mesh import shard_field
 from . import cuda_coarse, cuda_dense, cuda_dslash, fast
-from .coarse import CoarseOperator, compress
+from .coarse import CoarseOperator, compress, split_blocks
 from .wilson import WilsonOperator
 
 EVEN, ODD = 0, 1
 COLUMNS_PER_BATCH = 256   # one-hot columns per batched apply of a dense inverse build
+# where schur takes K4-schur on a stencil with split blocks (its kernel has
+# no CPU mode; tests add "cpu" to run its plain version there)
+SPLIT_SCHUR_DEVICES = ("cuda",)
 
 
 def _link_intra_mask(geom: Geometry) -> np.ndarray:
@@ -234,7 +238,10 @@ class WilsonStencilSoA(_SoALayout):
 class CoarseStencilSoA(_SoALayout):
     """Coarse-level stencil: the 9 packed block terms [A, Df_0..3, Db_0..3]
     and the packed self-coupling inverse; the Schwarz restriction masks the
-    neighbor fields inside K4, so one block tensor serves every operator."""
+    neighbor fields inside K4, so one block tensor serves every operator.
+    A coarsest level solved by the Schur GCR also holds its blocks split by
+    parity (E, O: split(), operators/coarse.split_blocks), which schur
+    applies with K4-schur."""
 
     Pk: torch.Tensor             # [9, d, d, V]
     Pk_inv: torch.Tensor         # [1, d, d, V]
@@ -242,6 +249,8 @@ class CoarseStencilSoA(_SoALayout):
     odd: torch.Tensor
     geom: Geometry
     mesh: object = None
+    E: Optional[torch.Tensor] = None   # [9, d, d, V/2]: even sites' A and hops
+    O: Optional[torch.Tensor] = None   # [9, d, d, V/2]: odd sites' A^-1 and hops
 
     @classmethod
     def build(cls, cop: CoarseOperator, geom: Geometry, dtype=None,
@@ -275,21 +284,34 @@ class CoarseStencilSoA(_SoALayout):
         """The stencil with Pk and Pk_inv stored in bf16 (the JAX package's
         compress, stencil.py:385-403); fields, parity masks and sums stay
         complex64 / f32, and K4-bf16 / K5-bf16 widen each block entry
-        before the multiply-add."""
-        return dataclasses.replace(self, Pk=compress(self.Pk),
-                                   Pk_inv=compress(self.Pk_inv))
+        before the multiply-add.  Split blocks are rounded too (the split
+        of the rounded blocks)."""
+        return dataclasses.replace(
+            self, Pk=compress(self.Pk), Pk_inv=compress(self.Pk_inv),
+            E=None if self.E is None else compress(self.E),
+            O=None if self.O is None else compress(self.O))
+
+    def split(self):
+        """Make the parity-split blocks (E, O) from Pk and Pk_inv, or
+        rewrite them in place where they exist (captured graphs read them)."""
+        self.E, self.O = split_blocks(self.Pk, self.Pk_inv, self.lattice,
+                                      out=None if self.E is None else (self.E, self.O))
 
     def refresh(self, view=None):
         """After Pk was rewritten in place: Pk_inv recomputed into its
         storage and, given the bf16 view (compress), both written rounded
-        into the view's storage (a setup's device programs read these
-        tensors: Multigrid.re_setup)."""
+        into the view's storage; the split blocks of the view (or of this
+        stencil without one) rewritten in place (a setup's device programs
+        read these tensors: Multigrid.re_setup)."""
         inv = torch.linalg.inv(self.Pk[0].permute(2, 1, 0))
         self.Pk_inv.copy_(inv[None].permute(0, 3, 2, 1))
         del inv
         if view is not None:
             compress(self.Pk, out=view.Pk)
             compress(self.Pk_inv, out=view.Pk_inv)
+        target = self if view is None else view
+        if target.E is not None:
+            target.split()
 
     @property
     def dof(self) -> int:
@@ -348,13 +370,21 @@ def shift_stencil(s, delta: float, op: WilsonOperator = None):
     Pk[0] += delta * eye[:, :, None]
     A = Pk[0].permute(2, 1, 0)                       # [V, i, j]
     Pk_inv = torch.linalg.inv(A)[None].permute(0, 3, 2, 1).contiguous()
-    return dataclasses.replace(s, Pk=Pk, Pk_inv=Pk_inv)
+    out = dataclasses.replace(s, Pk=Pk, Pk_inv=Pk_inv, E=None, O=None)
+    if s.E is not None:
+        out.split()
+    return out
 
 
 def schur(s, v):
     """The even-site Schur complement S = A_ee - h_eo A_oo^-1 h_oe applied
     to v (the operator of the coarsest odd-even solve,
-    coarse_solve_odd_even_PRECISION, src/coarse_oddeven_generic.c:1139)."""
+    coarse_solve_odd_even_PRECISION, src/coarse_oddeven_generic.c:1139):
+    K4-schur's two launches on the split blocks where the stencil holds
+    them and K4 would take its batch-1 kernel, else four K4 applies."""
+    if (s.E is not None and v.device.type in SPLIT_SCHUR_DEVICES
+            and cuda_coarse.batch1_regime(v, s.geom.num_sites)):
+        return cuda_coarse.schur_split(s.E, s.O, v, s.lattice)
     ve = s.even * v
     return s.even * (s.self_op(ve) - s.hop(s.self_inv(s.hop(ve), ODD)))
 

@@ -69,6 +69,9 @@ def cases():
             for name, terms, mask, parity in main:
                 out.append((f"{name} {L}^4", (L,) * 4, batch, terms, mask, parity, None,
                             ("f32", "bf16")))
+    for name, terms, mask in (("block masked", (0, 9), (2, 2, 2, 2)), ("full", (0, 9), None)):
+        out.append((f"{name} 16^4 (rough32's depth 1)", (16,) * 4, 1, terms, mask, None, None,
+                    ("bf16",)))
     for dims, loc in (((1, 2, 1, 1), (8, 4, 8, 8)), ((2, 2, 1, 1), (4, 4, 8, 8)),
                       ((1, 1, 2, 2), (8, 8, 4, 4)), ((2, 2, 2, 2), (4, 4, 4, 4))):
         for batch in (1, 28):

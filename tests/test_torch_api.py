@@ -103,6 +103,7 @@ def test_cpu_tensors_take_the_plain_path():
     cuda_coarse.coarse_apply_halo(blocks, v, lat, {1: (face, face)})
     cuda_coarse.coarse_apply(coarse.compress(blocks), v, lat)
     cuda_coarse.coarse_apply_halo(coarse.compress(blocks), v, lat, {1: (face, face)})
+    cuda_coarse.schur_split(*coarse.split_blocks(blocks, blocks[:1], lat), v, lat)
     cuda_dense.matvec(coarse.compress(blocks[0, None, :, :, 0]), v[None, :, 0])
     W = torch.zeros(1, 3, 4 * V, dtype=torch.complex64)
     one = torch.ones(1)
@@ -111,8 +112,8 @@ def test_cpu_tensors_take_the_plain_path():
                       v.reshape(1, -1).clone(), None, torch.ones(1, dtype=torch.bool), one,
                       None, one.clone(), torch.zeros(1, dtype=torch.long))
     assert kernels.counts() == {k: 0 for k in kernels.KERNELS}
-    assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K6",
-                                    "K7", "K8", "G"}
+    assert set(kernels.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K4-bf16", "K5-bf16", "K4-schur",
+                                    "K6", "K7", "K8", "G"}
 
 
 def test_cuda_request_never_runs_on_cpu():

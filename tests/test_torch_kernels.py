@@ -21,7 +21,7 @@ from ddalphaamg_tpu_torch.geometry import Geometry
 from ddalphaamg_tpu_torch.mg.coarsest import CoarsestGraph, coarsest_gcr
 from ddalphaamg_tpu_torch.mg import hierarchy
 from ddalphaamg_tpu_torch.operators import (coarse, cuda_coarse, cuda_dense, cuda_dslash,
-                                            cuda_gcr, fast)
+                                            cuda_gcr, fast, stencil)
 from ddalphaamg_tpu_torch.operators.stencil import ODD, CoarseStencilSoA
 
 torch.set_num_threads(1)
@@ -504,12 +504,12 @@ def test_small_solve_with_the_cuda_defaults_runs_through_the_kernels(cuda):
     assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K4-bf16", "K6")), counts
 
 
-def _coarsest_stencil(lat, d, gen, device, bf16=False, hop=0.023):
+def _coarsest_stencil(lat, d, gen, device, bf16=False, hop=0.023, dtype=torch.complex64):
     """A random coarse stencil on the card, made there: self blocks I plus
     complex normal noise (variance 2) of 0.05, hops of `hop` (~10 GCR
     iterations to 5e-2 at 4^4, d = 56); its bf16 view with bf16."""
     V = int(np.prod(lat))
-    Pk = _cplx((9, d, d, V), gen, torch.complex64, device) * np.sqrt(2)
+    Pk = _cplx((9, d, d, V), gen, dtype, device) * np.sqrt(2)
     Pk[0] *= 0.05
     Pk[0] += torch.eye(d, dtype=Pk.dtype, device=device)[:, :, None]
     Pk[1:] *= hop
@@ -581,6 +581,72 @@ def test_coarsest_graphs_follow_the_hierarchy(cuda, traced):
     assert torch.equal(c1, c0) and (torch.equal(x1, x0) or _rel(x1, x0) <= 1e-6)
     x2, info2 = s.solve(rhs)
     assert info2.converged and s.true_residual(x2, rhs) < 1e-10
+
+
+# K4-schur: (lattice, d, blocks, batch); rough32's coarsest shape first
+SCHUR_CASES = [((8, 8, 8, 8), 56, "bf16", 1), ((8, 8, 8, 8), 56, "bf16", 5),
+               ((8, 8, 8, 8), 56, "f32", 1), ((4, 4, 4, 4), 56, "bf16", 1),
+               ((4, 4, 4, 4), 56, "f32", 11), ((4, 4, 2, 6), 24, "f64", 3),
+               ((2, 2, 2, 2), 20, "f32", 2)]
+
+
+def _split_stencil(lat, d, kind, gen, device):
+    """_coarsest_stencil with blocks of `kind` and its parity-split blocks."""
+    dtype = torch.complex128 if kind == "f64" else torch.complex64
+    s = _coarsest_stencil(lat, d, gen, device, kind == "bf16", dtype=dtype)
+    s.split()
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lat, d, kind, batch", SCHUR_CASES)
+def test_schur_split_kernel_matches_plain_and_the_four_launches(cuda, monkeypatch, lat, d, kind,
+                                                                batch):
+    """K4-schur against its plain version, and bit for bit against the
+    four K4 launches of schur (its hop and self-term sums meet their terms
+    in the same order); two K4-schur launches an apply and no K4."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    s = _split_stencil(lat, d, kind, gen, cuda)
+    v = _cplx((batch, d, int(np.prod(lat))), gen, s.dtype, cuda)
+    kernels.reset_counts()
+    got = stencil.schur(s, v)
+    counts = kernels.counts()
+    assert counts["K4-schur"] == 2 and counts["K4"] == counts["K4-bf16"] == 0
+    assert _rel(got, coarse.schur_split_plain(s.E, s.O, v, lat)) < TOL[s.dtype]
+    assert not got[..., s.odd > 0].any()
+    monkeypatch.setattr(stencil, "SPLIT_SCHUR_DEVICES", ())
+    want = stencil.schur(s, v)
+    assert kernels.counts()["K4-schur"] == 2
+    assert torch.equal(got, want), _rel(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lat, kind, batch", [((8, 8, 8, 8), "bf16", 1),
+                                              ((4, 4, 4, 4), "f32", 3)])
+def test_coarsest_graph_on_the_split_path(cuda, monkeypatch, lat, kind, batch):
+    """rough32's coarsest GCR (8^4, d = 56, bf16) on K4-schur: one replay
+    gives the host loop's x and counters bit for bit and as many K4-schur
+    launches (the replays' counted through the graph's loop trips), the
+    prologue's and epilogue's four K4 launches beside; both equal the
+    four-launch operator's solve."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    s = _split_stencil(lat, 56, kind, gen, cuda)
+    key = "K4-bf16" if kind == "bf16" else "K4"
+    args = (100, 5e-2, 5, True)
+    b = _cplx((batch, *s.field_shape), gen, torch.complex64, cuda)
+    kernels.reset_counts()
+    x0, c0 = coarsest_gcr(s, b, *args)
+    host = kernels.counts()
+    assert host[key] == 4 and host["K4-schur"] > 0 and host["K4-schur"] % 2 == 0
+    graph = CoarsestGraph(s, batch, *args)
+    kernels.reset_counts()
+    x1, c1 = graph(b)
+    got = kernels.counts()
+    assert got[key] == host[key] and got["K4-schur"] == host["K4-schur"]
+    assert torch.equal(c1, c0) and torch.equal(x1, x0)
+    monkeypatch.setattr(stencil, "SPLIT_SCHUR_DEVICES", ())
+    x2, c2 = coarsest_gcr(s, b, *args)
+    assert torch.equal(c2, c0) and torch.equal(x2, x0)
 
 
 def _gcr_state(B, n, dtype, gen, cuda, frozen=False):
