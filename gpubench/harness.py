@@ -26,6 +26,17 @@ correct when every solve returned converged and every checked residual is
 below the configuration's tolerance.  The numbers compared are printed with
 their limits as the last lines on standard error and last in the result's
 line, which is the last line on standard output.
+
+A configuration whose d0_local_lattice is smaller than its
+d0_global_lattice runs on a process grid of global // local ranks, one a
+card (grid.py): every rank runs run_cell with its mesh.  Rank 0 makes the
+field and every rank receives its bits; every rank builds its Solver on the
+whole field and draws every request itself; rank 0's clock decides, before
+each request, whether the window goes on, and every rank learns it through
+one host collective, so all run the same requests.  Rank 0 times the
+requests (solve_multi gathers the global solution), keeps the checked
+solutions, traces, and checks them on its card once every rank has freed
+its solver; the peak memory is the fullest rank's.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ class Cell:
     traffic: dict
     end_to_end: list        # [(metric entry, module)]
     per_layer: list
+    grid: tuple = None      # the process grid (t, z, y, x), None on one card
 
 
 def _module(path: Path, kind: str):
@@ -102,7 +114,23 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
            for m in bench["end_to_end"] if _applies(m, name)]
     layer = [(m, _reader(root / BENCH / "metrics", m["name"], "layer"))
              for m in bench["per_layer"] if _applies(m, name)]
-    return Cell(name, int(w["chips"]), config, traffic, e2e, layer)
+    grid = process_grid(config)
+    if (math.prod(grid) if grid else 1) != int(w["chips"]):
+        raise SystemExit(f"{name}: the process grid {grid} of {conf['file']} does not "
+                         f"take the cell's {w['chips']} card(s)")
+    return Cell(name, int(w["chips"]), config, traffic, e2e, layer, grid)
+
+
+def process_grid(config: dict):
+    """The ranks (t, z, y, x) of a configuration, d0_global_lattice //
+    d0_local_lattice per axis (the port's cli._process_grid), or None where
+    the local lattice is the global one."""
+    ini = config["ini"]
+    glob, loc = ini["d0_global_lattice"], ini.get("d0_local_lattice", ini["d0_global_lattice"])
+    if any(g % n for g, n in zip(glob, loc)):
+        raise SystemExit(f"d0_local_lattice {loc} does not divide d0_global_lattice {glob}")
+    dims = tuple(g // n for g, n in zip(glob, loc))
+    return dims if math.prod(dims) > 1 else None
 
 
 def solver_params(config: dict):
@@ -141,25 +169,56 @@ class _Ticks:
         self.t = now
 
 
+def _grid_max(mesh, value: float) -> float:
+    """The largest of a host number over a grid's ranks (one host
+    collective; the number itself on one card)."""
+    if mesh is None:
+        return value
+    from ddalphaamg_tpu_torch.parallel import comm
+
+    return comm.all_reduce_max(mesh, value)
+
+
+def _go_on(mesh, requests: list, deadline: float) -> bool:
+    """Whether the window sends another request: the first always, then
+    until the deadline on rank 0's clock, which every rank of a grid learns
+    through one host collective."""
+    go = not requests or time.perf_counter() < deadline
+    return _grid_max(mesh, float(go and (mesh is None or mesh.rank == 0))) > 0
+
+
+def _links(lattice, fld: dict, device, mesh):
+    """The configuration's field on the host (what set_conf takes) and its
+    plaquette: made on the card, by rank 0 of a grid and sent to every rank."""
+    if mesh is None or mesh.rank == 0:
+        U = field.rough_su3(lattice, int(fld["seed"]), float(fld["target_plaquette"]),
+                            float(fld["tolerance"]), device)
+    else:
+        U = torch.empty((4, *lattice, 3, 3), dtype=torch.complex128, device=device)
+    if mesh is not None:
+        from ddalphaamg_tpu_torch.parallel import comm
+
+        U = comm.broadcast(mesh, U)
+    return U.cpu().numpy(), field.plaquette(U)
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
-             started: float) -> dict:
+             started: float, mesh=None) -> dict:
     """One run of `cell` on `device`; `started`: time.perf_counter() at the
-    process's start.  Returns the result (the last line is its JSON)."""
+    process's start.  Returns the result (the last line is its JSON).  On a
+    process grid (`mesh`) every rank calls it (module note); ranks other
+    than 0 return only their record's requests."""
     from ddalphaamg_tpu_torch import api, kernels
 
+    lead = mesh is None or mesh.rank == 0
     cfg = cell.config
     params = solver_params(cfg)
     lattice = tuple(params.depth[0].global_lattice)
     phases = {"start": time.perf_counter() - started}   # imports, CUDA initialised
     tick = _Ticks(phases, device)
-    fld = cfg["field"]
-    U = field.rough_su3(lattice, int(fld["seed"]), float(fld["target_plaquette"]),
-                        float(fld["tolerance"]), device)
-    plaq = field.plaquette(U)
-    links = U.cpu().numpy()          # what set_conf takes; kept for the reference
-    del U
+    links, plaq = _links(lattice, cfg["field"], device, mesh)
     tick("field")
-    solver = api.Solver(params, device=device)
+    solver = api.Solver(params, device=device, mesh=mesh)
     solver.set_conf(links)
     tick("set_conf")
     mg_setup_s = solver.setup().setup_time
@@ -173,7 +232,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     traffic = Traffic(cell.traffic, lattice)
     solver.solve_multi(traffic.request(seed, WARM_UP, reuse=True))
     tick("warm-up")
-    tracer = trace.Tracer(solver, kernels.counts, device) if traced else None
+    tracer = trace.Tracer(solver, kernels.counts, device) if traced and lead else None
     if tracer is not None:
         tracer.start()
         tick("profiler")
@@ -181,7 +240,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     requests, kept = [], {}
     t0 = time.perf_counter()
     deadline = t0 + seconds
-    while not requests or time.perf_counter() < deadline:
+    while _go_on(mesh, requests, deadline):
         i = len(requests)
         profiled = tracer is not None and i < traffic.trace_requests
         with trace.span("request"):
@@ -193,7 +252,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
                 xs, infos = solver.solve_multi(rhs)
                 te = time.perf_counter()
             with trace.span("keep"):
-                if traffic.checked(seed, i):
+                if lead and traffic.checked(seed, i):
                     kept[i] = xs
         requests.append(dict(latency_s=te - ts, end=te, draw_s=ts - td, batch=len(infos),
                              iterations=[info.iterations for info in infos],
@@ -205,22 +264,32 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     window_s = requests[-1]["end"] - t0
     setup_s = t0 - started
     peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    peak = int(_grid_max(mesh, peak))       # the fullest card's
     if tracer is not None:
         tracer.stop()               # a window shorter than trace_requests
     tr = None
+
+    def rerun():
+        solver.solve_multi(traffic.request(seed, 0))
+
     if tracer is not None:
-        loops = tracer.host_loops(lambda: solver.solve_multi(traffic.request(seed, 0)),
-                                  requests[0]["batch"])
+        loops = tracer.host_loops(rerun, requests[0]["batch"])
         profiled = [r for r in requests if r["profiled"]]
         tr = tracer.summarize(sum(r["batch"] for r in profiled), loops)
         tr["profiled_request_s"] = float(np.mean([r["latency_s"] for r in profiled]))
         rest = [r["latency_s"] for r in requests if not r["profiled"]]
         tr["unprofiled_request_s"] = float(np.mean(rest)) if rest else None
         del tracer
-    del solver
+    elif traced:                    # a grid's other ranks rerun along with rank 0
+        with trace.graphs_off():
+            rerun()
+    del solver, rerun
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+    _grid_max(mesh, 0.0)            # every rank's solver freed
+    if not lead:
+        return dict(result=None, record=dict(requests=requests), check_s=None)
     t = time.perf_counter()
     rel, checked = check_solutions(links, params, traffic, seed, kept, device)
     check_s = time.perf_counter() - t

@@ -1,8 +1,8 @@
 """coarse_ms.<cells>: device milliseconds a right-hand side of the coarse
-stencil kernels (K4, K4-bf16, K5: operators/cuda_coarse, csrc/coarse.cu),
-read from the window's first request run again after the window with host
-loops (trace.py), which launch them as often and at the same shapes as the
-replays do."""
+stencil kernels (K4, K4-bf16, K5, K5-bf16, K4-schur: operators/cuda_coarse,
+csrc/coarse.cu), read from the window's first request run again after the
+window with host loops (trace.py), which launch them as often and at the
+same shapes as the replays do."""
 
 
 def read(rec):

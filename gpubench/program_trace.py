@@ -38,7 +38,7 @@ REPLAY = RANGE + "replay "
 # iteration outside its replays, reads, scatter and gather)
 OUTER_OWN = ("outer iteration", "residual", "fine_op (d_plus_clover)", "scatter", "gather",
              "read norms", "read counters", "read iterations")
-COARSE = ("K4", "K4-bf16", "K5", "K5-bf16")
+COARSE = ("K4", "K4-bf16", "K5", "K5-bf16", "K4-schur")
 
 
 def _tracer():
@@ -104,7 +104,7 @@ def idle_by_span(events, rhs: int) -> dict:
 def marks_summary(rep: dict, rhs: int) -> dict:
     """A level-4 report of one request: its replay device seconds and
     launches, and the marks' split in seconds (coarse: K4 / K4-bf16 / K5 /
-    K5-bf16; torch: the sections' own time)."""
+    K5-bf16 / K4-schur; torch: the sections' own time)."""
     (req,) = [r for r in rep["requests"] if r["kind"] == "solve_multi"]
     marks = rep["marks"] or {"families": {}, "sections": {}, "torch_ns": 0.0, "cost_ns": None}
     fam = marks["families"]

@@ -6,7 +6,9 @@ Prints the run's notes and the numbers compared with their limits on
 standard error, and the result as one JSON object on the last line of
 standard output.  Exits non-zero, printing no result, without a card (or
 with fewer than the cell asks for), when the package under test cannot be
-imported, or when the JAX package or JAX was loaded.
+imported, or when the JAX package or JAX was loaded (here or in any rank).
+A cell on a process grid runs its ranks one a card (grid.py); STARTED,
+this process's start, is the start of every rank's set-up.
 """
 
 import time
@@ -39,9 +41,16 @@ def main(argv=None) -> int:
         print(f"{cell.name} needs {cell.chips} CUDA card(s); this machine has {n}",
               file=sys.stderr)
         return 2
-    torch.cuda.set_device(0)
-    res = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", STARTED)
-    bad = harness.banned_modules()
+    if cell.grid is None:
+        torch.cuda.set_device(0)
+        res = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", STARTED)
+        bad = harness.banned_modules()
+    else:
+        from gpubench import grid
+
+        ranks = grid.run(cell, ROOT, args.seed, args.seconds, bool(args.trace), STARTED)
+        res = ranks[0]
+        bad = sorted(set(harness.banned_modules()).union(*(r["banned"] for r in ranks)))
     if bad:
         print(f"loaded modules of the JAX package or JAX: {bad}", file=sys.stderr)
         return 3

@@ -48,8 +48,8 @@ FAMILIES = (("K1", re.compile(r"dslash_(mrhs_)?kernel<(float|double), true")),
             ("copies", re.compile(r"^(Memcpy|Memset|memcpy|memset)")))
 # the port's launch counters (kernels.counts()) of each family
 COUNTED = {"K1": ("K1",), "K2": ("K2",), "K3": ("K3",),
-           "coarse": ("K4", "K5", "K4-bf16", "K5-bf16"), "K6": ("K6",), "K7": ("K7",),
-           "K8": ("K8",)}
+           "coarse": ("K4", "K5", "K4-bf16", "K5-bf16", "K4-schur"), "K6": ("K6",),
+           "K7": ("K7",), "K8": ("K8",)}
 TOP = 10
 
 
@@ -76,6 +76,21 @@ def _wrapped(fn, label, events=None):
             events.append(pair)
             return out
     return wrapped
+
+
+@contextlib.contextmanager
+def graphs_off():
+    """Every GCR of the port driven from the host (mg.hierarchy.GRAPH_DEVICES
+    empty) inside the block; on a process grid every rank enters it for the
+    same requests."""
+    from ddalphaamg_tpu_torch.mg import hierarchy
+
+    saved = hierarchy.GRAPH_DEVICES
+    hierarchy.GRAPH_DEVICES = ()
+    try:
+        yield
+    finally:
+        hierarchy.GRAPH_DEVICES = saved
 
 
 def _union(intervals):
@@ -195,16 +210,11 @@ class Tracer:
         """run() (the window's first request again) with every GCR driven
         from the host, profiled: each family's device events and seconds, the top
         kernels and the coverage, over `rhs` right-hand sides."""
-        from ddalphaamg_tpu_torch.mg import hierarchy
-
-        saved, before = hierarchy.GRAPH_DEVICES, self.counts()
-        hierarchy.GRAPH_DEVICES = ()
-        try:
-            with torch.profiler.profile(activities=self._activities(cpu=False)) as prof:
-                run()
-                self._sync()
-        finally:
-            hierarchy.GRAPH_DEVICES = saved
+        before = self.counts()
+        with graphs_off(), torch.profiler.profile(
+                activities=self._activities(cpu=False)) as prof:
+            run()
+            self._sync()
         launches = {k: n - before.get(k, 0) for k, n in self.counts().items()}
         families, top = _families(_events(prof)[0])
         return dict(families=families, top_events=top, rhs=rhs,
